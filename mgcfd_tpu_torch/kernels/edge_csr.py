@@ -1,0 +1,165 @@
+"""edge_csr: owner-sorted half-edge sums in three modes — the CUDA kernel
+csrc/edge_csr.cu, its wrapper and its plain PyTorch version.
+
+Replaces mgcfd_tpu/pallas/flux_window.py::_window_kernel (flux, rw and
+wsum modes). The wrapper launches the kernel for CUDA tensors and takes
+the plain version only for tensors on the CPU; anything else raises.
+Each role on the solver's path has its own wrapper instance with its own
+launch count (``launches``, a plain int added to at each kernel launch):
+``flux``, ``rw``, ``restrict`` and ``prolong``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.constants import GAMMA, SMOOTHING_COEFFICIENT
+from ..prep.csr import CSRPlan
+from . import build
+
+MODES = {"flux": 0, "rw": 1, "wsum": 2}
+_MIN_WEIGHT_ROWS = {"flux": 4, "rw": 3, "wsum": 1}
+
+
+@dataclasses.dataclass
+class DeviceCSR:
+    """A CSRPlan on a device: row_ptr and col int32 for the kernel, the
+    per-entry owner int64 for the plain version, weights (K, H)."""
+
+    num_rows: int
+    num_cols: int
+    row_ptr: torch.Tensor
+    col: torch.Tensor
+    owner: torch.Tensor
+    w: torch.Tensor
+
+    @property
+    def num_entries(self) -> int:
+        return int(self.col.shape[0])
+
+    @classmethod
+    def from_plan(cls, plan: CSRPlan, device, dtype) -> "DeviceCSR":
+        if plan.num_entries >= 2 ** 31:
+            raise ValueError("CSR too large for int32 indices")
+
+        def put(a, dt):
+            return torch.as_tensor(np.ascontiguousarray(a)).to(
+                device=device, dtype=dt)
+
+        return cls(num_rows=plan.num_rows, num_cols=plan.num_cols,
+                   row_ptr=put(plan.row_ptr, torch.int32),
+                   col=put(plan.col, torch.int32),
+                   owner=put(plan.owner, torch.int64),
+                   w=put(plan.w, dtype))
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def complete8(q):
+    """(5, ...) conserved -> [rho, mx, my, mz, E, p, speed+sos, 1/rho],
+    the op order of flux_window._complete8 and csr_common.cuh."""
+    rho, mx, my, mz, E = q[0], q[1], q[2], q[3], q[4]
+    inv = 1.0 / rho
+    vx, vy, vz = mx * inv, my * inv, mz * inv
+    speed_sqd = vx * vx + vy * vy + vz * vz
+    p = (GAMMA - 1.0) * (E - 0.5 * rho * speed_sqd)
+    s = torch.sqrt(speed_sqd) + torch.sqrt(GAMMA * p * inv)
+    return [rho, mx, my, mz, E, p, s, inv]
+
+
+def flux_math(qo, qn, w0, w1, w2, wt):
+    """Flux value into the owner of each half-edge (flux_window._flux_math)."""
+    ro, mox, moy, moz, Eo, po, so, iro = qo
+    rn, mnx, mny, mnz, En, pn, sn, irn = qn
+    factor = wt * (-0.5 * SMOOTHING_COEFFICIENT) * (so + sn)
+    wmo = w0 * mox + w1 * moy + w2 * moz
+    wmn = w0 * mnx + w1 * mny + w2 * mnz
+    wvo = wmo * iro
+    wvn = wmn * irn
+    psum = po + pn
+    return torch.stack([
+        factor * (ro - rn) - 0.5 * (wmo + wmn),
+        factor * (mox - mnx) - 0.5 * (wvo * mox + wvn * mnx + w0 * psum),
+        factor * (moy - mny) - 0.5 * (wvo * moy + wvn * mny + w1 * psum),
+        factor * (moz - mnz) - 0.5 * (wvo * moz + wvn * mnz + w2 * psum),
+        factor * (Eo - En) - 0.5 * (wvo * (Eo + po) + wvn * (En + pn)),
+    ])
+
+
+def edge_csr_plain(mode: str, csr: DeviceCSR, x: torch.Tensor):
+    """What the kernel computes, as gathers plus one index_add_: per entry
+    h of row i with neighbour j,
+      flux  out[:, i] += flux_math(q_i, q_j, w[0:3, h], w[3, h])
+      rw    out[:, i] += q_i + q_j + w0 + w1 + w2
+      wsum  out[:, i] += w[0, h] * x[:, j]."""
+    xn = x.index_select(1, csr.col)
+    w = csr.w
+    if mode == "wsum":
+        vals = w[0] * xn
+    else:
+        xo = x.index_select(1, csr.owner)
+        if mode == "flux":
+            vals = flux_math(complete8(xo), complete8(xn), w[0], w[1], w[2],
+                             w[3])
+        else:
+            vals = xo + xn + w[0] + w[1] + w[2]
+    out = torch.zeros((x.shape[0], csr.num_rows), dtype=x.dtype,
+                      device=x.device)
+    return out.index_add_(1, csr.owner, vals)
+
+
+def check_operands(csr: DeviceCSR, x: torch.Tensor, mode: str) -> None:
+    """Raise on what the kernel does not take."""
+    if x.dtype not in (torch.float32, torch.float64) or \
+            x.dtype != csr.w.dtype:
+        raise TypeError(f"edge_csr: dtype {x.dtype} with weights "
+                        f"{csr.w.dtype}; float32 or float64, matching")
+    if tuple(x.shape) != (5, csr.num_cols) or not x.is_contiguous():
+        raise ValueError(f"edge_csr: need a contiguous (5, {csr.num_cols}) "
+                         f"state, got {tuple(x.shape)}")
+    if mode != "wsum" and csr.num_rows != csr.num_cols:
+        raise ValueError(f"edge_csr {mode}: owner and neighbour spaces "
+                         "must coincide")
+    if csr.w.shape[0] < _MIN_WEIGHT_ROWS[mode]:
+        raise ValueError(f"edge_csr {mode}: needs {_MIN_WEIGHT_ROWS[mode]} "
+                         f"weight rows, plan has {csr.w.shape[0]}")
+    if any(t.device != x.device for t in (csr.row_ptr, csr.col, csr.w)):
+        raise ValueError("edge_csr: plan and state on different devices")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"edge_csr: unsupported device {x.device}")
+
+
+class EdgeCSR:
+    """The edge_csr kernel in one mode, for one role on the path."""
+
+    def __init__(self, name: str, mode: str):
+        self.name = name
+        self.mode = mode
+        self.launches = 0
+
+    def __call__(self, csr: DeviceCSR, x: torch.Tensor) -> torch.Tensor:
+        """(5, num_cols) -> (5, num_rows)."""
+        check_operands(csr, x, self.mode)
+        if not _on_card(x):
+            return edge_csr_plain(self.mode, csr, x)
+        out = torch.empty((5, csr.num_rows), dtype=x.dtype, device=x.device)
+        x_own = 0 if self.mode == "wsum" else x.data_ptr()
+        rc = build.library().mgcfd_edge_csr(
+            int(x.dtype == torch.float64), MODES[self.mode],
+            csr.row_ptr.data_ptr(), csr.col.data_ptr(), csr.w.data_ptr(),
+            csr.num_entries, x_own, x.data_ptr(), csr.num_cols,
+            out.data_ptr(), csr.num_rows,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(rc, self.name)
+        self.launches += 1
+        return out
+
+
+flux = EdgeCSR("edge_csr.flux", "flux")
+rw = EdgeCSR("edge_csr.rw", "rw")
+restrict = EdgeCSR("edge_csr.wsum.restrict", "wsum")
+prolong = EdgeCSR("edge_csr.wsum.prolong", "wsum")

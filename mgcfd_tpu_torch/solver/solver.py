@@ -1,0 +1,368 @@
+"""Single-device multigrid Euler solver.
+
+Control flow of mgcfd_tpu.solver.solver (reference main loop
+euler3d_cpu_double.cpp:371-694): per level visit, copy the old state,
+compute the step factor, run 3 RK stages (internal + boundary + wall
+flux, time step, invalid count, then the indirect_rw twin), and form the
+residual; per cycle visit levels 0..L-1 on the way up, restricting after
+each, then prolong/visit pairs down to level 1 (level 0 is visited at the
+start of the next cycle). PyTorch runs it eagerly; the host reads one RMS
+and one invalid count per cycle.
+
+Two paths, chosen by SolverConfig.accumulate:
+  'segment'  node-major (N, 5) state, plain edge-stream ops (index_add_)
+             — the CPU path and the card's plain reference;
+  'window'   variable-major (5, N) state through the CUDA kernels over
+             owner-sorted CSR plans (fused RK stage, rw twin, restriction
+             and composed prolongation); on the CPU the same wrappers run
+             their plain versions. The edge_csr flux mode is not on this
+             path: the fused stage carries its row loop.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.config import SolverConfig
+from ..core.constants import NVAR, RK, MeshVariant, far_field_state
+from ..core.types import MultigridMesh
+from ..kernels import DeviceCSR, edge_csr
+from ..kernels.fused_stage import fused_stage
+from ..mesh.build import apply_ewt_conditioning
+from ..ops import (accumulate_flux, boundary_edge_flux, calc_rms,
+                   compute_step_factor, compute_step_factor_legacy,
+                   indirect_rw_edge_values, internal_edge_flux,
+                   invalid_variables_count, mg_restrict,
+                   prolong_residuals_interpolate, residual, time_step,
+                   wall_edge_flux)
+from ..ops import tops
+from ..prep.csr import build_flux_csr, build_prolong_csr, \
+    build_restrict_csr
+
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+@dataclasses.dataclass
+class DeviceLevel:
+    num_nodes: int
+    volumes: torch.Tensor
+    coords: Optional[torch.Tensor]
+    edge_a: torch.Tensor           # int64
+    edge_b: torch.Tensor
+    edge_w: torch.Tensor
+    bedge_b: torch.Tensor
+    bedge_w: torch.Tensor
+    wedge_b: torch.Tensor
+    wedge_w: torch.Tensor
+    mg_mapping: Optional[torch.Tensor]
+    # kernel path (accumulate='window')
+    csr: Optional[DeviceCSR] = None        # flux plan of this level
+    nc: Optional[torch.Tensor] = None      # (11, N) boundary/wall consts
+    restrict_csr: Optional[DeviceCSR] = None   # this level -> next
+    restrict_mapped: Optional[torch.Tensor] = None
+    prolong_csr: Optional[DeviceCSR] = None    # next level -> this
+
+
+@dataclasses.dataclass
+class DeviceMesh:
+    levels: list
+    variant: MeshVariant
+    ff_flux: torch.Tensor           # (3, 5)
+
+
+def resolve_device(device=None) -> torch.device:
+    """None means the card: raise if CUDA is absent rather than fall back
+    to the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "MGCFDSolver runs on CUDA unless asked otherwise and no CUDA "
+            "device is available; pass device='cpu' to run on the CPU")
+    return device
+
+
+def resolve_accumulate(config: SolverConfig, device: torch.device) -> None:
+    """accumulate='auto' -> 'window' (the kernels) on CUDA at fp32 and
+    fp64 alike (the H100 runs fp64 natively); 'segment' on the CPU.
+    Mutates config in place."""
+    if config.accumulate == "auto":
+        config.accumulate = "window" if device.type == "cuda" else "segment"
+
+
+def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
+                        device: torch.device) -> DeviceMesh:
+    """Condition the edge weights per mesh variant (euler3d:333-352) on
+    copies, cast to the configured dtype, upload, and build the CSR plans
+    and boundary/wall constants of the kernel path."""
+    resolve_accumulate(config, device)
+    dtype = DTYPES[config.dtype]
+    levels = [dataclasses.replace(lv, edge_w=lv.edge_w.copy(),
+                                  bedge_w=lv.bedge_w.copy(),
+                                  wedge_w=lv.wedge_w.copy())
+              for lv in mesh.levels]
+    apply_ewt_conditioning(levels, mesh.variant)
+    ff_flux = far_field_state(np.float64)[1]
+
+    def put(x, dt=dtype):
+        return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dt)
+
+    window = config.accumulate == "window"
+    dlevels = []
+    for lv in levels:
+        d = DeviceLevel(
+            num_nodes=lv.num_nodes, volumes=put(lv.volumes),
+            coords=None if lv.coords is None else put(lv.coords),
+            edge_a=put(lv.edge_a, torch.int64),
+            edge_b=put(lv.edge_b, torch.int64), edge_w=put(lv.edge_w),
+            bedge_b=put(lv.bedge_b, torch.int64), bedge_w=put(lv.bedge_w),
+            wedge_b=put(lv.wedge_b, torch.int64), wedge_w=put(lv.wedge_w),
+            mg_mapping=None if lv.mg_mapping is None
+            else put(lv.mg_mapping, torch.int64))
+        if window:
+            d.csr = DeviceCSR.from_plan(build_flux_csr(lv), device, dtype)
+            bdn, wln, wlc = tops.build_dense_boundary_wall(
+                lv.num_nodes, lv.bedge_b, lv.bedge_w, lv.wedge_b,
+                lv.wedge_w, ff_flux)
+            d.nc = put(np.concatenate([bdn, wln, wlc], axis=0))
+        dlevels.append(d)
+    if window:
+        for i in range(len(levels) - 1):
+            fine, coarse = levels[i], levels[i + 1]
+            plan, mapped = build_restrict_csr(
+                fine.mg_mapping, fine.num_nodes, coarse.num_nodes)
+            dlevels[i].restrict_csr = DeviceCSR.from_plan(plan, device,
+                                                          dtype)
+            dlevels[i].restrict_mapped = torch.as_tensor(mapped).to(device)
+            dlevels[i].prolong_csr = DeviceCSR.from_plan(
+                build_prolong_csr(fine, coarse), device, dtype)
+    return DeviceMesh(levels=dlevels, variant=mesh.variant,
+                      ff_flux=put(ff_flux))
+
+
+# ---------------------------------------------------------------------------
+# one level, plain edge-stream path (node-major)
+# ---------------------------------------------------------------------------
+
+def _compute_fluxes(lvl: DeviceLevel, variables, ff_flux):
+    """Internal + boundary + wall flux, accumulated with index_add_."""
+    val_i = internal_edge_flux(variables[lvl.edge_a], variables[lvl.edge_b],
+                               lvl.edge_w)
+    val_bd = boundary_edge_flux(variables[lvl.bedge_b], lvl.bedge_w)
+    val_w = wall_edge_flux(variables[lvl.wedge_b], lvl.wedge_w, ff_flux)
+    return accumulate_flux(lvl.num_nodes, lvl.edge_a, lvl.edge_b, val_i,
+                           lvl.bedge_b, val_bd, lvl.wedge_b, val_w)
+
+
+def _indirect_rw(lvl: DeviceLevel, variables):
+    """The data-movement twin (indirect_rw_loop.cpp); its result is
+    discarded, as the reference's zero_fluxes discards it."""
+    val_a, val_b = indirect_rw_edge_values(
+        variables[lvl.edge_a], variables[lvl.edge_b], lvl.edge_w)
+    return accumulate_flux(lvl.num_nodes, lvl.edge_a, lvl.edge_b, val_a,
+                           val_internal_b=val_b)
+
+
+def _visit(lvl: DeviceLevel, variables, ff_flux, config: SolverConfig,
+           legacy_step: bool):
+    """One smoothing pass (euler3d_cpu_double.cpp:383-512): returns
+    (variables, residuals, invalid_count)."""
+    old = variables
+    if legacy_step:
+        sf = compute_step_factor_legacy(variables, lvl.volumes)
+    else:
+        sf = compute_step_factor(variables, lvl.volumes)
+    invalid = torch.zeros((), dtype=torch.int64, device=variables.device)
+    for j in range(RK):
+        fluxes = _compute_fluxes(lvl, variables, ff_flux)
+        variables = time_step(j, sf, fluxes, old)
+        invalid = invalid + invalid_variables_count(variables)
+        if config.include_indirect_rw:
+            _indirect_rw(lvl, variables)
+    return variables, residual(old, variables), invalid
+
+
+# ---------------------------------------------------------------------------
+# one level, kernel path (variable-major)
+# ---------------------------------------------------------------------------
+
+def t_step_factor(lvl: DeviceLevel, q, legacy_step: bool):
+    """Step factor of a (5, N) state (cfd_loops.cpp:13-157 semantics)."""
+    prim = tops.t_primitives(q)
+    if legacy_step:
+        return 0.5 / (torch.sqrt(lvl.volumes)
+                      * (prim["speed"] + prim["sos"]))
+    dt = 0.5 * torch.pow(lvl.volumes, 1.0 / 3.0) / (prim["speed"]
+                                                   + prim["sos"])
+    return torch.min(dt).expand(dt.shape) / lvl.volumes
+
+
+def _visit_window(lvl: DeviceLevel, q, config: SolverConfig,
+                  legacy_step: bool):
+    """The kernel-path smoothing pass on a (5, N) state: ONE fused_stage
+    launch per RK stage covers flux, boundary/wall, time step and invalid
+    count; the step factor stays outside (its global min is a cross-block
+    reduction). The rw twin's kernel runs after each stage and its result
+    is discarded."""
+    old = q
+    sf = t_step_factor(lvl, q, legacy_step)
+    invalid = torch.zeros((), dtype=torch.int64, device=q.device)
+    for j in range(RK):
+        q, inv = fused_stage(lvl.csr, lvl.nc, q, old,
+                             sf / float(RK + 1 - j))
+        invalid = invalid + inv
+        if config.include_indirect_rw:
+            edge_csr.rw(lvl.csr, q)
+    return q, q - old, invalid
+
+
+# ---------------------------------------------------------------------------
+# multigrid transfers
+# ---------------------------------------------------------------------------
+
+def apply_restrict(fine: DeviceLevel, coarse: DeviceLevel, vars_f, vars_c,
+                   window: bool):
+    """Restrict the fine variables onto the coarse level (euler3d:547-552);
+    unmapped coarse nodes keep their value."""
+    if window:
+        mean = edge_csr.restrict(fine.restrict_csr, vars_f)
+        return torch.where(fine.restrict_mapped[None], mean, vars_c)
+    return mg_restrict(vars_f, vars_c, fine.mg_mapping, coarse.num_nodes)
+
+
+def apply_prolong(fine: DeviceLevel, coarse: DeviceLevel, res_c, res_f,
+                  vars_f, window: bool):
+    """vars_f += res_f - interpolated coarse residual (mg_loops.cpp:
+    678-864, with the a1 -> b2 quirk)."""
+    if window:
+        return vars_f + (res_f - edge_csr.prolong(fine.prolong_csr, res_c))
+    return prolong_residuals_interpolate(
+        res_c, res_f, vars_f, fine.mg_mapping, coarse.coords, fine.coords,
+        fine.edge_a, fine.edge_b)
+
+
+# ---------------------------------------------------------------------------
+# the solver
+# ---------------------------------------------------------------------------
+
+class MGCFDSolver:
+    """Owns the device mesh and state, runs V-cycles and performs the
+    fail-fast invalid-state check between cycles (validation.cpp:107-138).
+    The state is node-major at this interface: variables(level) is
+    (N, 5) whatever the internal layout."""
+
+    def __init__(self, mesh: MultigridMesh,
+                 config: SolverConfig | None = None, device=None):
+        self.config = config or SolverConfig()
+        self.config.validate()
+        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.dmesh = prepare_device_mesh(mesh, self.config, self.device)
+        self.dtype = DTYPES[self.config.dtype]
+        self._window = self.config.accumulate == "window"
+        self.state = self._layout(
+            [np.tile(far_field_state(np.float64)[0], (lv.num_nodes, 1))
+             for lv in mesh.levels],
+            [np.zeros((lv.num_nodes, NVAR)) for lv in mesh.levels])
+        self.rms_history: list[float] = []
+        self.completed_cycles = 0
+
+    def _layout(self, variables, residuals) -> dict:
+        """Node-major host arrays -> the state dict in the path's layout."""
+        def put(a):
+            t = torch.as_tensor(np.asarray(a, np.float64)).to(
+                device=self.device, dtype=self.dtype)
+            return t.T.contiguous() if self._window else t
+        return {"variables": [put(v) for v in variables],
+                "residuals": [put(r) for r in residuals]}
+
+    def load_state(self, state: dict) -> None:
+        """Install a node-major state ({'variables': [...],
+        'residuals': [...]} per level, see convert.state_from_arrays)."""
+        self.state = self._layout(state["variables"], state["residuals"])
+
+    def cycle(self):
+        """One V-cycle; returns (level-0 RMS, invalid count), device
+        scalars."""
+        levels = self.dmesh.levels
+        L = len(levels)
+        legacy = self.dmesh.variant.uses_legacy_step_factor
+        variables = self.state["variables"]
+        residuals = self.state["residuals"]
+        invalid_total = torch.zeros((), dtype=torch.int64,
+                                    device=self.device)
+
+        def visit(lev):
+            nonlocal invalid_total
+            if self._window:
+                v, res, inv = _visit_window(levels[lev], variables[lev],
+                                            self.config, legacy)
+            else:
+                v, res, inv = _visit(levels[lev], variables[lev],
+                                     self.dmesh.ff_flux, self.config,
+                                     legacy)
+            variables[lev] = v
+            residuals[lev] = res
+            invalid_total = invalid_total + inv
+            return res
+
+        rms = None
+        for lev in range(L - 1):
+            res = visit(lev)
+            if lev == 0:
+                rms = calc_rms(res, levels[0].num_nodes)
+            variables[lev + 1] = apply_restrict(
+                levels[lev], levels[lev + 1], variables[lev],
+                variables[lev + 1], self._window)
+        res = visit(L - 1)
+        if L == 1:
+            rms = calc_rms(res, levels[0].num_nodes)
+        for lev in range(L - 2, -1, -1):
+            variables[lev] = apply_prolong(
+                levels[lev], levels[lev + 1], residuals[lev + 1],
+                residuals[lev], variables[lev], self._window)
+            if lev > 0:
+                visit(lev)
+        return rms, invalid_total
+
+    def run(self, cycles: int | None = None, verbose: bool = False):
+        """Run `cycles` more V-cycles (default config.num_cycles). Raises
+        FloatingPointError when a checked cycle produced an invalid
+        state."""
+        cycles = cycles if cycles is not None else self.config.num_cycles
+        check_every = max(1, self.config.check_invalid_every)
+        for i in range(cycles):
+            rms, invalid = self.cycle()
+            if (i + 1) % check_every == 0 or i == cycles - 1:
+                inv = int(invalid)
+                if inv > 0:
+                    raise FloatingPointError(
+                        f"invalid state detected during cycle {i + 1}: "
+                        f"{inv} bad entries (NaN/Inf/negative density or "
+                        f"energy)")
+                self.rms_history.append(float(rms))
+                if verbose:
+                    print(f"MG cycle {i + 1} / {cycles} "
+                          f"(RMS = {self.rms_history[-1]:.3e})", flush=True)
+            self.completed_cycles += 1
+        return self.state
+
+    def _node_major(self, t: torch.Tensor) -> torch.Tensor:
+        return t.T if self._window else t
+
+    def variables(self, level: int = 0) -> np.ndarray:
+        """(N, 5) variables of one level, as float64 numpy."""
+        v = self._node_major(self.state["variables"][level])
+        return v.detach().to("cpu", torch.float64).numpy()
+
+    def step_factors(self, level: int = 0) -> np.ndarray:
+        """(N,) step factors of the current state, as float64 numpy."""
+        lvl = self.dmesh.levels[level]
+        v = self._node_major(self.state["variables"][level])
+        if self.dmesh.variant.uses_legacy_step_factor:
+            sf = compute_step_factor_legacy(v, lvl.volumes)
+        else:
+            sf = compute_step_factor(v, lvl.volumes)
+        return sf.detach().to("cpu", torch.float64).numpy()

@@ -1,0 +1,161 @@
+"""The port's solver against mgcfd_tpu.MGCFDSolver at fp64 on the CPU.
+
+Both start from identical arrays (convert.mesh_from_arrays). The JAX leg
+is SolverConfig(dtype="float64"), which `auto` sends to its segment path
+on the CPU. The port runs its plain edge-stream path ('segment') and its
+kernel path ('window'), whose wrappers take the plain versions for CPU
+tensors. Per-cycle RMS and final level-0 variables are
+held to identify_differences (validate/golden.py:93-112): relative 1e-8,
+absolute floor 1e-15 for FVCORR and 3e-19 otherwise."""
+import numpy as np
+import pytest
+import torch
+
+from mgcfd_tpu.core.config import SolverConfig as JaxConfig
+from mgcfd_tpu.core.constants import MeshVariant as JaxVariant
+from mgcfd_tpu.mesh import generate_multigrid_box as jax_mg_box
+from mgcfd_tpu.mesh.unstructured import \
+    generate_unstructured_hierarchy as jax_tet
+from mgcfd_tpu.solver import MGCFDSolver as JaxSolver
+from mgcfd_tpu_torch.convert import mesh_from_arrays, state_from_arrays
+from mgcfd_tpu_torch.core.config import SolverConfig
+from mgcfd_tpu_torch.core.constants import MeshVariant
+from mgcfd_tpu_torch.solver import MGCFDSolver
+from mgcfd_tpu_torch.validate import identify_differences
+
+torch.set_num_threads(1)
+CYCLES = 3
+PATHS = {"segment": {"accumulate": "segment"},
+         "window": {"accumulate": "window"}}
+_JAX_RUNS: dict = {}
+
+
+def jax_mesh(kind, variant):
+    v = JaxVariant[variant.name]
+    if kind == "box":
+        return jax_mg_box(12, 12, 12, 3, h=(0.1, 0.1, 0.1), variant=v)
+    return jax_tet(12, 12, 12, 3, seed=1, h=0.1, variant=v)
+
+
+def jax_run(kind, variant):
+    """(mesh, solver after CYCLES cycles), computed once per module."""
+    key = (kind, variant)
+    if key not in _JAX_RUNS:
+        mesh = jax_mesh(kind, variant)
+        s = JaxSolver(mesh, JaxConfig(dtype="float64"))
+        s.run(CYCLES)
+        _JAX_RUNS[key] = (mesh, s)
+    return _JAX_RUNS[key]
+
+
+def port(mesh, path, **kw):
+    return MGCFDSolver(mesh_from_arrays(mesh),
+                       SolverConfig(dtype="float64", **PATHS[path], **kw),
+                       device="cpu")
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+@pytest.mark.parametrize("variant", list(MeshVariant))
+@pytest.mark.parametrize("kind", ["box", "tet"])
+def test_cycles_match_jax(kind, variant, path):
+    mesh, ref = jax_run(kind, variant)
+    s = port(mesh, path)
+    s.run(CYCLES)
+    assert len(s.rms_history) == CYCLES
+    identify_differences(np.array(s.rms_history),
+                         np.array(ref.rms_history), variant)
+    identify_differences(s.variables(0), ref.variables(0), variant)
+
+
+@pytest.mark.parametrize("path", ["segment", "window"])
+def test_start_from_a_shared_state(path):
+    """state_from_arrays carries a mid-run JAX state into the port; both
+    then run on to the same variables, levels and step factors."""
+    mesh = jax_mesh("tet", MeshVariant.FVCORR)
+    ref = JaxSolver(mesh, JaxConfig(dtype="float64"))
+    ref.run(1)
+    st = ref._state_node_major()
+    s = port(mesh, path)
+    s.load_state(state_from_arrays(
+        [np.asarray(v) for v in st["variables"]],
+        [np.asarray(r) for r in st["residuals"]]))
+    ref.run(2)
+    s.run(2)
+    identify_differences(np.array(s.rms_history),
+                         np.array(ref.rms_history[1:]), MeshVariant.FVCORR)
+    for lev in range(3):
+        identify_differences(s.variables(lev), ref.variables(lev),
+                             MeshVariant.FVCORR)
+    np.testing.assert_allclose(s.step_factors(0), ref.step_factors(0),
+                               rtol=1e-10)
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_nan_guard_raises(path):
+    """validation.cpp:107-138: a negative density stops the run."""
+    mesh = jax_mg_box(8, 6, 6, 2, h=(0.1, 0.1, 0.1))
+    s = port(mesh, path)
+    v = s.state["variables"][0]
+    if path == "segment":
+        v[3, 0] = -5.0
+    else:
+        v[0, 3] = -5.0
+    with pytest.raises(FloatingPointError):
+        s.run(1)
+
+
+def test_accumulate_resolution_and_unported_options():
+    mesh = mesh_from_arrays(jax_mg_box(4, 4, 4, 2))
+    cfg = SolverConfig(dtype="float64")
+    MGCFDSolver(mesh, cfg, device="cpu")
+    assert cfg.accumulate == "segment"      # auto on the CPU
+    for mode in ("pallas", "shift", "ell", "scatter"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            MGCFDSolver(mesh, SolverConfig(accumulate=mode), device="cpu")
+    for kw in ({"flux_cripple": True}, {"num_partitions": 2},
+               {"checkpoint_dir": "x"}, {"dtype": "bfloat16"}):
+        with pytest.raises(NotImplementedError):
+            MGCFDSolver(mesh, SolverConfig(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="flux_fission"):
+        SolverConfig(flux_fission=True, accumulate="window").validate()
+
+
+# every field the port lacks, at a value other than its default
+UNPORTED = {
+    "input_file": "mesh.dat", "input_file_directory": "d",
+    "output_file_prefix": "p", "mesh_duplicate_count": 2,
+    "validate_result": True, "output_variables": True,
+    "output_fluxes": True, "output_step_factors": True,
+    "output_volumes": True, "output_edge_fluxes": True,
+    "flux_fission": True, "flux_cripple": True,
+    "flux_precompute_edge_weights": True, "flux_reuse_flux": True,
+    "flux_reuse_div": True, "flux_reuse_factor": True,
+    "checkpoint_dir": "c", "checkpoint_every": 1, "resume": True,
+    "event_config_file": "e", "fuse_stage": False,
+    "fuse_window_stage": False, "transposed": True,
+    "window_tile_order": False, "mg_gather": False, "plan_cache_dir": "p",
+    "compile_cache_dir": "c", "num_partitions": 2, "partition_2d": "2x2",
+    "shard_levels": 2, "monitor_mode": "instrumented",
+}
+
+
+@pytest.mark.parametrize("field", list(UNPORTED))
+def test_unported_field_raises(field):
+    """A field whose feature the port lacks is refused by name at any
+    value but its default, never silently ignored."""
+    SolverConfig(**{field: JaxConfig.__dataclass_fields__[field].default}
+                 ).validate()
+    with pytest.raises(NotImplementedError, match=field):
+        SolverConfig(**{field: UNPORTED[field]}).validate()
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_auto_resolution(device):
+    """auto is the kernels on CUDA, whatever the other fields, and the
+    plain path on the CPU."""
+    from mgcfd_tpu_torch.solver.solver import resolve_accumulate
+    for dtype in ("float32", "float64"):
+        cfg = SolverConfig(dtype=dtype)
+        resolve_accumulate(cfg, torch.device(device))
+        assert cfg.accumulate == ("window" if device == "cuda"
+                                  else "segment")
