@@ -7,23 +7,34 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 What it does, in order, printing each step with the elapsed seconds:
   1. arms a watchdog that dumps every thread's traceback and exits
-     non-zero after 8 minutes (the run takes under one);
+     non-zero after 8 minutes (the run takes about one);
   2. prints the card (torch and nvidia-smi);
   3. builds the CUDA kernels with one nvcc call;
-  4. holds every kernel (edge_csr in flux, rw and wsum modes, fused_stage)
-     against its plain PyTorch version on the card, at the box flagship's
-     level-0 shapes, in fp64 and fp32;
+  4. holds every kernel against its plain PyTorch version on the card, in
+     fp64 and fp32: edge_csr in flux, rw and wsum modes and fused_stage at
+     the box flagship's level-0 shapes, shift in flux and rw modes and
+     shift.fused_stage (with and without a spill operand) at its level-0
+     and level-1 shapes;
   5. drives the main path, MGCFDSolver(...).run() on the box flagship
-     (304,640 nodes, 4 levels): fp64 through the kernels against fp64
+     (304,640 nodes, 4 levels) with accumulate='auto', which takes the
+     span kernels ('pallas') there: fp64 through the kernels against fp64
      through the plain path, then fp32 through the kernels with the
-     launch counts read around the run;
-  6. runs the same box undamped (the FVCORR variant) from a perturbed
-     state, where every node moves by O(0.1) per cycle: fp64 kernels
-     against fp64 plain, and the fp32 kernel RMS against the fp64 RMS;
-  7. runs a 32^3, 3-level tet hierarchy through both paths at fp64;
-  8. times the V-cycle and each kernel beside its byte bound, its plain
+     launch counts set to 0 just before the run and read just after;
+  6. drives the CSR kernel path ('window', slice 1's path) on the same box
+     the same way, and the span path unfused (fuse_stage=False) at fp64;
+  7. runs the same box undamped (the FVCORR variant) from a perturbed
+     state, where every node moves by O(0.1) per cycle, through 'pallas'
+     and 'window': fp64 kernels against fp64 plain, and the fp32 kernel
+     RMS against the fp64 RMS;
+  8. runs the box with every shift plan cut to one span, so that two
+     thirds of its edges are spill edges: their flux goes through the
+     edge_csr flux kernel into the fused stage's spill operand; fp64
+     against the plain path, launches counted;
+  9. runs a 32^3, 3-level tet hierarchy, which `auto` sends to 'window',
+     through both paths at fp64;
+ 10. times each V-cycle and each kernel beside its bound, its plain
      version and a library call where one computes the same function;
-  9. prints the card's name and power limit, one JSON line of kernel
+ 11. prints the card's name and power limit, one JSON line of kernel
      records, and last the JSON line {"ok": true, "device": {...}}.
 Any failed check raises, and the exit code is then non-zero. Without a
 CUDA device, or without the package beside this file, it exits non-zero
@@ -33,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import faulthandler
+import functools
 import json
 import math
 import subprocess
@@ -49,17 +61,27 @@ FP32_FLOP_PER_S = 67e12
 
 # the Pallas kernels the CUDA kernels replace
 _WINDOW = "mgcfd_tpu/pallas/flux_window.py"
-REPLACES = {"edge_csr": f"{_WINDOW}:222", "fused_stage": f"{_WINDOW}:359"}
+_SHIFT = "mgcfd_tpu/pallas/flux_shift.py"
+REPLACES = {"edge_csr": f"{_WINDOW}:222", "fused_stage": f"{_WINDOW}:359",
+            "shift_flux": f"{_SHIFT}:152",
+            "shift_fused_stage": f"{_SHIFT}:380"}
 SOURCES = {"edge_csr": "mgcfd_tpu_torch/csrc/edge_csr.cu",
-           "fused_stage": "mgcfd_tpu_torch/csrc/fused_stage.cu"}
+           "fused_stage": "mgcfd_tpu_torch/csrc/fused_stage.cu",
+           "shift_flux": "mgcfd_tpu_torch/csrc/shift_flux.cu",
+           "shift_fused_stage": "mgcfd_tpu_torch/csrc/shift_fused_stage.cu"}
 
-# operations per CSR entry and per row, counted from the kernel source
-# (each add, multiply, divide and square root is one operation)
+# operations per CSR entry, per span and per row, counted from the kernel
+# sources (each add, multiply, divide and square root is one operation)
 FLUX_OPS_PER_ENTRY = 80   # neighbour completion (~17) + flux_math (~63)
 FLUX_OPS_PER_ROW = 17     # owner completion
 FUSED_EXTRA_OPS_PER_ROW = 60  # boundary/wall flux, update, validity
 RW_OPS_PER_ENTRY = 25
 WSUM_OPS_PER_ENTRY = 10
+# the span kernels evaluate two edge values per node and span (one per
+# endpoint), each a neighbour completion and flux_math, or in rw mode 12
+# additions
+SHIFT_FLUX_OPS_PER_SPAN_ROW = 2 * FLUX_OPS_PER_ENTRY
+SHIFT_RW_OPS_PER_SPAN_ROW = 2 * 12
 
 # Tolerances of the kernel-against-plain checks, relative to each
 # channel's largest magnitude. fp64: both sides round each operation to
@@ -82,6 +104,12 @@ CAPACITY_TOL = 5e-7
 RMS_DIGITS_TOL = 1e-3
 # relative noise on the far-field state that the undamped box starts from
 PERTURBATION = 0.01
+# launches per cycle of each path on the 4-level flagship: 6 visits of 3
+# RK stages, 3 restrictions and 3 prolongations
+MG = {"edge_csr.wsum.restrict": 3, "edge_csr.wsum.prolong": 3}
+WANT_MAIN = {"shift.fused_stage": 18, "shift.rw": 18, **MG}
+WANT_WINDOW = {"fused_stage": 18, "edge_csr.rw": 18, **MG}
+WANT_UNFUSED = {"shift.flux": 18, "shift.rw": 18, **MG}
 
 
 def log(msg: str) -> None:
@@ -102,12 +130,6 @@ def rel_err(got, want) -> float:
     g, w = got.double(), want.double()
     scale = w.abs().amax(dim=1).clamp_min(1e-300)
     return float(((g - w).abs().amax(dim=1) / scale).max())
-
-
-def sig(x: float, digits: int = 3) -> float:
-    if x == 0 or not math.isfinite(x):
-        return x
-    return round(x, -int(math.floor(math.log10(abs(x)))) + digits - 1)
 
 
 def capacity_rel(v32, v64) -> float:
@@ -154,9 +176,27 @@ def random_state(n: int, seed: int, dtype, device):
     return torch.as_tensor(q).to(device=device, dtype=dtype)
 
 
-def check_kernels(s64, s32) -> None:
-    """Each kernel against its plain version at level-0 shapes."""
+def check_cases(cases, dt, tol) -> None:
     import torch
+    torch.cuda.synchronize()
+    for name, got, want in cases:
+        err = rel_err(got, want)
+        log(f"check {name:30s} {str(dt):14s} max rel err {err:.3e} "
+            f"(tol {tol:.0e})")
+        require(err <= tol, f"{name} {dt}: {err:.3e} > {tol:.0e}")
+
+
+def planted(q):
+    """q with a NaN density and a negative energy planted."""
+    bad = q.clone()
+    n = q.shape[1]
+    bad[0, n // 2] = float("nan")
+    bad[4, n // 3] = -1.0
+    return bad
+
+
+def check_csr_kernels(s64, s32) -> None:
+    """Each CSR kernel against its plain version at level-0 shapes."""
     from mgcfd_tpu_torch.kernels import edge_csr
     from mgcfd_tpu_torch.kernels.fused_stage import (fused_stage,
                                                      fused_stage_plain)
@@ -172,7 +212,9 @@ def check_kernels(s64, s32) -> None:
         fac = t_step_factor(L0, q, False) / 3.0
         xf = random_state(n0, 3, dt, dev)
         rc = random_state(n1, 4, dt, dev) - random_state(n1, 5, dt, dev)
-        cases = [
+        k_out, k_inv = fused_stage(L0.csr, L0.nc, q, old, fac)
+        p_out, p_inv = fused_stage_plain(L0.csr, L0.nc, q, old, fac)
+        check_cases([
             ("edge_csr.flux", edge_csr.flux(L0.csr, q),
              plain("flux", L0.csr, q)),
             ("edge_csr.rw", edge_csr.rw(L0.csr, q), plain("rw", L0.csr, q)),
@@ -181,26 +223,56 @@ def check_kernels(s64, s32) -> None:
              plain("wsum", L0.restrict_csr, xf)),
             ("edge_csr.wsum.prolong", edge_csr.prolong(L0.prolong_csr, rc),
              plain("wsum", L0.prolong_csr, rc)),
-        ]
-        k_out, k_inv = fused_stage(L0.csr, L0.nc, q, old, fac)
-        p_out, p_inv = fused_stage_plain(L0.csr, L0.nc, q, old, fac)
-        cases.append(("fused_stage", k_out, p_out))
-        torch.cuda.synchronize()
-        for name, got, want in cases:
-            err = rel_err(got, want)
-            log(f"check {name:24s} {str(dt):14s} max rel err {err:.3e} "
-                f"(tol {tol:.0e})")
-            require(err <= tol, f"{name} {dt}: {err:.3e} > {tol:.0e}")
+            ("fused_stage", k_out, p_out)], dt, tol)
         require(int(k_inv) == int(p_inv) == 0,
                 f"fused_stage invalid counts {int(k_inv)} / {int(p_inv)}")
-        bad_q = q.clone()
-        bad_q[0, n0 // 2] = float("nan")
-        bad_q[4, n0 // 3] = -1.0
+        bad_q = planted(q)
         k_inv = int(fused_stage(L0.csr, L0.nc, bad_q, old, fac)[1])
         p_inv = int(fused_stage_plain(L0.csr, L0.nc, bad_q, old, fac)[1])
         log(f"check fused_stage invalid count with a planted NaN and "
             f"E<0: kernel {k_inv}, plain {p_inv}")
         require(k_inv == p_inv > 0, "fused_stage invalid counts differ")
+
+
+def check_shift_kernels(s64, s32) -> None:
+    """Each span kernel against its plain version at level-0 and level-1
+    shapes (level 1: 38,080 nodes, no multiple of the 256-thread block,
+    spans up to 1120 reach across blocks)."""
+    from mgcfd_tpu_torch.kernels import shift
+    from mgcfd_tpu_torch.solver.solver import t_step_factor
+    for solver, tol in ((s64, TOL_FP64), (s32, TOL_FP32)):
+        dt = solver.dtype
+        for lev in (0, 1):
+            L = solver.dmesh.levels[lev]
+            sh, n, dev = L.shift, L.num_nodes, L.volumes.device
+            q = random_state(n, 11 + lev, dt, dev)
+            old = q + 1e-3 * random_state(n, 13, dt, dev)
+            fac = t_step_factor(L, q, False) / 3.0
+            spill = 1e-3 * random_state(n, 14, dt, dev)
+            k0, k0_inv = shift.fused_stage(sh, L.nc, q, old, fac)
+            p0, p0_inv = shift.shift_fused_stage_plain(sh, L.nc, q, old,
+                                                       fac)
+            k1, _ = shift.fused_stage(sh, L.nc, q, old, fac, spill)
+            p1, _ = shift.shift_fused_stage_plain(sh, L.nc, q, old, fac,
+                                                  spill)
+            check_cases([
+                (f"shift.flux L{lev} spans {sh.deltas}", shift.flux(sh, q),
+                 shift.shift_plain("flux", sh, q)),
+                (f"shift.rw L{lev}", shift.rw(sh, q),
+                 shift.shift_plain("rw", sh, q)),
+                (f"shift.fused_stage L{lev}", k0, p0),
+                (f"shift.fused_stage+spill L{lev}", k1, p1)], dt, tol)
+            require(int(k0_inv) == int(p0_inv) == 0,
+                    f"shift.fused_stage invalid counts {int(k0_inv)} / "
+                    f"{int(p0_inv)}")
+            bad_q = planted(q)
+            k_inv = int(shift.fused_stage(sh, L.nc, bad_q, old, fac)[1])
+            p_inv = int(shift.shift_fused_stage_plain(sh, L.nc, bad_q, old,
+                                                      fac)[1])
+            log(f"check shift.fused_stage L{lev} invalid count with a "
+                f"planted NaN and E<0: kernel {k_inv}, plain {p_inv}")
+            require(k_inv == p_inv > 0,
+                    "shift.fused_stage invalid counts differ")
 
 
 def per_cycle(counts: dict, cycles: int) -> dict:
@@ -242,6 +314,45 @@ def same_as_plain(kern, plain, mesh, what: str) -> None:
         f"all levels; RMS {kern.rms_history} plain {plain.rms_history}")
 
 
+def counted_run(solver, cycles: int, what: str, want: dict | None = None):
+    """Run `cycles` cycles with every launch count set to 0 just before
+    and read just after. With `want` (launches per cycle of the kernels
+    the path runs) every other count must stay 0."""
+    from mgcfd_tpu_torch import kernels
+    kernels.reset_launch_counts()
+    solver.run(cycles)
+    counts = kernels.launch_counts()
+    pc = per_cycle(counts, cycles)
+    log(f"{what}: {cycles} cycles, launches {counts}")
+    if want is not None:
+        full = {k: want.get(k, 0) for k in counts}
+        require(pc == full, f"{what}: launches per cycle {pc} != {full}")
+    return counts, pc
+
+
+def timed_run(solver, what: str):
+    """fp32 path: 2 cycles then 10 timed by CUDA events, all with launches
+    counted. Returns (counts, per cycle, ms per cycle, level-0 variables
+    after the first 2 cycles)."""
+    import torch
+    from mgcfd_tpu_torch import kernels
+    kernels.reset_launch_counts()
+    solver.run(2)
+    v2 = solver.variables(0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    solver.run(10)
+    end.record()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    cycles = solver.completed_cycles
+    log(f"{what}: {cycles} cycles through the kernels; launches {counts}")
+    return counts, per_cycle(counts, cycles), \
+        start.elapsed_time(end) / 10, v2
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -255,15 +366,16 @@ def main() -> int:
               "run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(here))
-    from mgcfd_tpu_torch import kernels
     from mgcfd_tpu_torch.bench import FLAGSHIP_SPEC, flagship_mesh
     from mgcfd_tpu_torch.core.config import SolverConfig
     from mgcfd_tpu_torch.core.constants import MeshVariant
-    from mgcfd_tpu_torch.kernels import build, edge_csr
+    from mgcfd_tpu_torch.kernels import build, edge_csr, shift
     from mgcfd_tpu_torch.kernels.fused_stage import (fused_stage,
                                                      fused_stage_plain)
     from mgcfd_tpu_torch.mesh import generate_unstructured_hierarchy
+    from mgcfd_tpu_torch.prep.shift import build_shift_plan
     from mgcfd_tpu_torch.solver import MGCFDSolver
+    from mgcfd_tpu_torch.solver import solver as solver_mod
 
     # no matrix product or convolution runs in fp32 on the paths timed
     # here; keep any that might at full fp32 all the same
@@ -278,96 +390,141 @@ def main() -> int:
     log(f"built {path.name} with one nvcc call in {secs:.1f} s")
     build.library()
 
-    def solver(mesh, dtype, accumulate):
-        return MGCFDSolver(mesh, SolverConfig(dtype=dtype,
-                                              accumulate=accumulate))
+    def solver(mesh, dtype, accumulate="auto", **kw):
+        s = MGCFDSolver(mesh, SolverConfig(dtype=dtype,
+                                           accumulate=accumulate, **kw))
+        log(f"solver ready: {mesh.name} {mesh.variant.name} {dtype} "
+            f"accumulate={accumulate} -> {s.config.accumulate} {kw or ''}")
+        return s
 
     mesh = flagship_mesh()
     lv0 = mesh.levels[0]
     log(f"box flagship: {lv0.num_nodes} nodes, {lv0.num_internal_edges} "
         f"internal edges, {mesh.num_levels} levels")
-    k64 = solver(mesh, "float64", "window")
-    k32 = solver(mesh, "float32", "window")
-    log("kernel-path solvers ready (fp64, fp32)")
+    m64, m32 = solver(mesh, "float64"), solver(mesh, "float32")
+    require(m64.config.accumulate == m32.config.accumulate == "pallas",
+            "auto did not take the span kernels on the box flagship")
+    log("span plans: " + "; ".join(
+        f"L{i} spans {lv.shift.deltas} spill "
+        f"{0 if lv.spill_csr is None else lv.spill_csr.num_entries // 2}"
+        for i, lv in enumerate(m64.dmesh.levels)))
+    w64, w32 = solver(mesh, "float64", "window"), \
+        solver(mesh, "float32", "window")
 
-    check_kernels(k64, k32)
+    check_csr_kernels(w64, w32)
+    check_shift_kernels(m64, m32)
 
-    # --- main path, fp64: kernels against the plain path ---
+    # --- fp64: both kernel paths and the unfused span path against the
+    # plain path, launches counted ---
     p64 = solver(mesh, "float64", "segment")
-    k64.run(2)
     p64.run(2)
-    same_as_plain(k64, p64, mesh, "box fp64, 2 cycles")
+    counted_run(m64, 2, "main path ('pallas') fp64", WANT_MAIN)
+    same_as_plain(m64, p64, mesh, "box fp64 'pallas', 2 cycles")
+    counted_run(w64, 2, "window path fp64", WANT_WINDOW)
+    same_as_plain(w64, p64, mesh, "box fp64 'window', 2 cycles")
+    u64 = solver(mesh, "float64", "pallas", fuse_stage=False)
+    counts_unfused, pc_unfused = counted_run(
+        u64, 2, "unfused span path fp64", WANT_UNFUSED)
+    same_as_plain(u64, p64, mesh, "box fp64 'pallas' unfused, 2 cycles")
 
-    # --- main path, fp32 through the kernels, launches counted ---
-    kernels.reset_launch_counts()
-    k32.run(2)
-    v2 = k32.variables(0)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    k32.run(10)
-    end.record()
-    torch.cuda.synchronize()
-    cycle_ms = start.elapsed_time(end) / 10
-    counts = kernels.launch_counts()
-    main_cycles = k32.completed_cycles
-    launches_per_cycle = per_cycle(counts, main_cycles)
-    log(f"box fp32, {main_cycles} cycles through the kernels; launches "
-        f"{counts}; per cycle {launches_per_cycle}")
-    want = {"edge_csr.flux": 0, "edge_csr.rw": 18,
-            "edge_csr.wsum.restrict": 3, "edge_csr.wsum.prolong": 3,
-            "fused_stage": 18}
-    require(launches_per_cycle == want,
-            f"launch counts per cycle {launches_per_cycle} != {want}")
-    rms32 = k32.rms_history
-    require(all(math.isfinite(r) for r in rms32), f"fp32 RMS {rms32}")
-    cap = capacity_rel(v2, k64.variables(0))
-    log(f"box fp32 vs fp64 after 2 cycles: capacity max rel {cap:.3e} "
-        f"(tol {CAPACITY_TOL:.0e}); fp32 RMS {rms32}")
-    require(cap <= CAPACITY_TOL, f"fp32 vs fp64 {cap:.3e}")
+    # --- fp32, timed, launches counted: the main path, then 'window' ---
+    counts_main, pc_main, main_ms, v2 = timed_run(
+        m32, "main path ('pallas') fp32")
+    full = {k: WANT_MAIN.get(k, 0) for k in counts_main}
+    require(pc_main == full, f"main path launches per cycle {pc_main} "
+            f"!= {full}")
+    cap = capacity_rel(v2, m64.variables(0))
+    log(f"box fp32 'pallas' vs fp64 after 2 cycles: capacity max rel "
+        f"{cap:.3e} (tol {CAPACITY_TOL:.0e}); fp32 RMS {m32.rms_history}")
+    require(cap <= CAPACITY_TOL and all(
+        math.isfinite(r) for r in m32.rms_history), f"fp32 vs fp64 {cap:.3e}")
+    counts_window, pc_window, window_ms, v2 = timed_run(
+        w32, "window path fp32")
+    full = {k: WANT_WINDOW.get(k, 0) for k in counts_window}
+    require(pc_window == full, f"window path launches per cycle "
+            f"{pc_window} != {full}")
+    cap = capacity_rel(v2, w64.variables(0))
+    log(f"box fp32 'window' vs fp64 after 2 cycles: capacity max rel "
+        f"{cap:.3e} (tol {CAPACITY_TOL:.0e}); fp32 RMS {w32.rms_history}")
+    require(cap <= CAPACITY_TOL and all(
+        math.isfinite(r) for r in w32.rms_history), f"fp32 vs fp64 {cap:.3e}")
 
     # --- the same box undamped, from a perturbed state ---
     umesh = flagship_mesh(dataclasses.replace(FLAGSHIP_SPEC,
                                               variant=MeshVariant.FVCORR))
     ustart = perturbed_state(umesh, seed=11)
-    u64, up64, u32 = (solver(umesh, "float64", "window"),
-                      solver(umesh, "float64", "segment"),
-                      solver(umesh, "float32", "window"))
-    for u in (u64, up64, u32):
-        u.load_state(ustart)
-        u.run(2)
-    moved = float(abs(u64.variables(0) - ustart["variables"][0]).max())
+    up64 = solver(umesh, "float64", "segment")
+    up64.load_state(ustart)
+    up64.run(2)
+    moved = float(abs(up64.variables(0) - ustart["variables"][0]).max())
     log(f"undamped box (FVCORR) from the far field with {PERTURBATION} "
         f"relative noise, 2 cycles: max change of a variable {moved:.3e}")
     require(moved > 1e-2, "the undamped box did not move")
-    same_as_plain(u64, up64, umesh, "undamped box fp64, 2 cycles")
-    rms_rel = [abs(a - b) / abs(b)
-               for a, b in zip(u32.rms_history, u64.rms_history)]
-    log(f"undamped box fp32 kernel RMS {u32.rms_history} vs fp64 "
-        f"{u64.rms_history}: relative differences {rms_rel}")
-    require(all(math.isfinite(r) for r in u32.rms_history)
-            and max(rms_rel) <= RMS_DIGITS_TOL,
-            "fp32 RMS does not agree with fp64 to 3 digits")
+    for mode in ("pallas", "window"):
+        k64, k32 = solver(umesh, "float64", mode), \
+            solver(umesh, "float32", mode)
+        for u in (k64, k32):
+            u.load_state(ustart)
+            u.run(2)
+        same_as_plain(k64, up64, umesh,
+                      f"undamped box fp64 '{mode}', 2 cycles")
+        rms_rel = [abs(a - b) / abs(b)
+                   for a, b in zip(k32.rms_history, k64.rms_history)]
+        log(f"undamped box '{mode}' fp32 kernel RMS {k32.rms_history} vs "
+            f"fp64 {k64.rms_history}: relative differences {rms_rel}")
+        require(all(math.isfinite(r) for r in k32.rms_history)
+                and max(rms_rel) <= RMS_DIGITS_TOL,
+                f"'{mode}' fp32 RMS does not agree with fp64 to 3 digits")
 
-    # --- tet hierarchy, fp64: kernels against the plain path ---
+    # --- spill edges: every plan cut to one span ---
+    solver_mod.build_shift_plan = functools.partial(build_shift_plan,
+                                                    max_deltas=1)
+    try:
+        s64 = solver(mesh, "float64", "pallas")
+    finally:
+        solver_mod.build_shift_plan = build_shift_plan
+    log("one-span plans: " + "; ".join(
+        f"L{i} spans {lv.shift.deltas} spill edges "
+        f"{lv.spill_csr.num_entries // 2}"
+        for i, lv in enumerate(s64.dmesh.levels)))
+    L0 = s64.dmesh.levels[0]
+    q = random_state(L0.num_nodes, 21, s64.dtype, L0.volumes.device)
+    check_cases([("edge_csr.flux over spill edges",
+                  edge_csr.flux(L0.spill_csr, q),
+                  edge_csr.edge_csr_plain("flux", L0.spill_csr, q))],
+                s64.dtype, TOL_FP64)
+    counts_spill, pc_spill = counted_run(s64, 2, "spill-forced 'pallas' "
+                                         "fp64")
+    for k in ("shift.fused_stage", "shift.rw", "edge_csr.flux",
+              "edge_csr.rw"):
+        require(counts_spill[k] > 0, f"spill run launched no {k}")
+    require(counts_spill["shift.flux"] == counts_spill["fused_stage"] == 0,
+            "spill run launched a kernel off its path")
+    same_as_plain(s64, p64, mesh, "box fp64 'pallas' with spill, 2 cycles")
+
+    # --- tet hierarchy, fp64: auto takes 'window' there ---
     tmesh = generate_unstructured_hierarchy(32, 32, 32, 3, seed=0)
     log(f"tet {tmesh.levels[0].num_nodes} nodes, "
         f"{tmesh.levels[0].num_internal_edges} edges, 3 levels")
-    kt = solver(tmesh, "float64", "window")
+    kt = solver(tmesh, "float64")
+    require(kt.config.accumulate == "window",
+            "auto did not take the CSR kernels on the tet")
     pt = solver(tmesh, "float64", "segment")
     kt.run(2)
     pt.run(2)
     same_as_plain(kt, pt, tmesh, "tet fp64, 2 cycles")
 
-    # --- times at the main path's fp32 level-0 shapes ---
-    L0, L1 = k32.dmesh.levels[0], k32.dmesh.levels[1]
-    q = k32.state["variables"][0]
+    # --- times at the fp32 level-0 shapes ---
+    M0 = m32.dmesh.levels[0]
+    W0, W1 = w32.dmesh.levels[0], w32.dmesh.levels[1]
+    q = m32.state["variables"][0]
     old = q + 1e-6 * q
-    fac = torch.full_like(L0.volumes, 1e-3)
-    res1 = k32.state["residuals"][1]
+    fac = torch.full_like(M0.volumes, 1e-3)
+    res1 = m32.state["residuals"][1]
     sz = q.element_size()
-    n0, n1 = L0.num_nodes, L1.num_nodes
+    n0, n1 = M0.num_nodes, W1.num_nodes
+    sh = M0.shift
+    D = len(sh.deltas)
 
     def csr_bytes(csr, wrows):
         return 4 * (csr.num_rows + 1) + 4 * csr.num_entries \
@@ -380,66 +537,85 @@ def main() -> int:
 
     xf_t = q.T.contiguous()
     rc_t = res1.T.contiguous()
-    sp_r, sp_p = sparse(L0.restrict_csr), sparse(L0.prolong_csr)
+    sp_r, sp_p = sparse(W0.restrict_csr), sparse(W0.prolong_csr)
     plain = edge_csr.edge_csr_plain
+    # the spill edges of the one-span level 0, at fp32
+    spill32 = dataclasses.replace(L0.spill_csr, w=L0.spill_csr.w.float())
+    # name, kernel family, path whose run gives the launches, kernel fn,
+    # plain fn, library fn, bytes, operations
     rows = [
-        # name, kernel family, kernel fn, plain fn, library fn, bytes,
-        # operations
-        ("fused_stage", "fused_stage",
-         lambda: fused_stage(L0.csr, L0.nc, q, old, fac)[0],
-         lambda: fused_stage_plain(L0.csr, L0.nc, q, old, fac)[0], None,
-         csr_bytes(L0.csr, 4) + sz * n0 * (5 + 5 + 1 + 11 + 5) + 4,
-         FLUX_OPS_PER_ENTRY * L0.csr.num_entries
-         + (FLUX_OPS_PER_ROW + FUSED_EXTRA_OPS_PER_ROW) * n0),
-        ("edge_csr.flux", "edge_csr",
-         lambda: edge_csr.flux(L0.csr, q), lambda: plain("flux", L0.csr, q),
-         None, csr_bytes(L0.csr, 4) + sz * n0 * 10,
-         FLUX_OPS_PER_ENTRY * L0.csr.num_entries + FLUX_OPS_PER_ROW * n0),
-        ("edge_csr.rw", "edge_csr",
-         lambda: edge_csr.rw(L0.csr, q), lambda: plain("rw", L0.csr, q),
-         None, csr_bytes(L0.csr, 3) + sz * n0 * 10,
-         RW_OPS_PER_ENTRY * L0.csr.num_entries),
-        ("edge_csr.wsum.restrict", "edge_csr",
-         lambda: edge_csr.restrict(L0.restrict_csr, q),
-         lambda: plain("wsum", L0.restrict_csr, q),
+        ("shift.fused_stage", "shift_fused_stage", "main",
+         lambda: shift.fused_stage(sh, M0.nc, q, old, fac)[0],
+         lambda: shift.shift_fused_stage_plain(sh, M0.nc, q, old, fac)[0],
+         None, sz * n0 * (5 + 4 * D + 5 + 1 + 11 + 5) + 4,
+         (SHIFT_FLUX_OPS_PER_SPAN_ROW * D + FLUX_OPS_PER_ROW
+          + FUSED_EXTRA_OPS_PER_ROW) * n0),
+        ("shift.rw", "shift_flux", "main", lambda: shift.rw(sh, q),
+         lambda: shift.shift_plain("rw", sh, q), None,
+         sz * n0 * (5 + 3 * D + 5), SHIFT_RW_OPS_PER_SPAN_ROW * D * n0),
+        ("shift.flux", "shift_flux", "unfused", lambda: shift.flux(sh, q),
+         lambda: shift.shift_plain("flux", sh, q), None,
+         sz * n0 * (5 + 4 * D + 5),
+         (SHIFT_FLUX_OPS_PER_SPAN_ROW * D + FLUX_OPS_PER_ROW) * n0),
+        ("edge_csr.wsum.restrict", "edge_csr", "main",
+         lambda: edge_csr.restrict(W0.restrict_csr, q),
+         lambda: plain("wsum", W0.restrict_csr, q),
          lambda: torch.sparse.mm(sp_r, xf_t),
-         csr_bytes(L0.restrict_csr, 1) + sz * 5 * (n0 + n1),
-         WSUM_OPS_PER_ENTRY * L0.restrict_csr.num_entries),
-        ("edge_csr.wsum.prolong", "edge_csr",
-         lambda: edge_csr.prolong(L0.prolong_csr, res1),
-         lambda: plain("wsum", L0.prolong_csr, res1),
+         csr_bytes(W0.restrict_csr, 1) + sz * 5 * (n0 + n1),
+         WSUM_OPS_PER_ENTRY * W0.restrict_csr.num_entries),
+        ("edge_csr.wsum.prolong", "edge_csr", "main",
+         lambda: edge_csr.prolong(W0.prolong_csr, res1),
+         lambda: plain("wsum", W0.prolong_csr, res1),
          lambda: torch.sparse.mm(sp_p, rc_t),
-         csr_bytes(L0.prolong_csr, 1) + sz * 5 * (n1 + n0),
-         WSUM_OPS_PER_ENTRY * L0.prolong_csr.num_entries),
+         csr_bytes(W0.prolong_csr, 1) + sz * 5 * (n1 + n0),
+         WSUM_OPS_PER_ENTRY * W0.prolong_csr.num_entries),
+        ("fused_stage", "fused_stage", "window",
+         lambda: fused_stage(W0.csr, W0.nc, q, old, fac)[0],
+         lambda: fused_stage_plain(W0.csr, W0.nc, q, old, fac)[0], None,
+         csr_bytes(W0.csr, 4) + sz * n0 * (5 + 5 + 1 + 11 + 5) + 4,
+         FLUX_OPS_PER_ENTRY * W0.csr.num_entries
+         + (FLUX_OPS_PER_ROW + FUSED_EXTRA_OPS_PER_ROW) * n0),
+        ("edge_csr.rw", "edge_csr", "window",
+         lambda: edge_csr.rw(W0.csr, q), lambda: plain("rw", W0.csr, q),
+         None, csr_bytes(W0.csr, 3) + sz * n0 * 10,
+         RW_OPS_PER_ENTRY * W0.csr.num_entries),
+        ("edge_csr.flux", "edge_csr", "spill",
+         lambda: edge_csr.flux(spill32, q),
+         lambda: plain("flux", spill32, q), None,
+         csr_bytes(spill32, 4) + sz * n0 * 10,
+         FLUX_OPS_PER_ENTRY * spill32.num_entries
+         + FLUX_OPS_PER_ROW * n0),
     ]
+    runs = {"main": (counts_main, pc_main),
+            "window": (counts_window, pc_window),
+            "unfused": (counts_unfused, pc_unfused),
+            "spill": (counts_spill, pc_spill)}
     records = []
-    for (rname, family, kfn, pfn, lfn, nbytes, nops) in rows:
-        launches = counts[rname]
+    for (rname, family, run, kfn, pfn, lfn, nbytes, nops) in rows:
+        counts, pc = runs[run]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / FP32_FLOP_PER_S * 1e3
+        require(counts[rname] > 0, f"{rname}: no launch in the {run} run")
         rec = {
             "name": rname, "route": "cuda", "source": SOURCES[family],
-            "replaces": REPLACES[family], "launches": launches,
+            "replaces": REPLACES[family], "launches": counts[rname],
             "max_abs_err": float((kfn() - pfn()).abs().max()),
             "ms": device_ms(kfn), "plain_ms": device_ms(pfn),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None if lfn is None else device_ms(lfn),
-            "launches_per_cycle": launches_per_cycle[rname],
+            "path": run, "launches_per_cycle": pc[rname],
         }
-        # the kernels line holds the main path's kernels; the flux mode is
-        # checked and timed all the same, and its row loop runs inside
-        # fused_stage
-        if want[rname]:
-            records.append(rec)
+        records.append(rec)
         lib = "-" if lfn is None else f"{rec['library_ms'] * 1e3:.1f} us"
         log(f"time {rname:24s} {rec['ms'] * 1e3:9.1f} us  plain "
             f"{rec['plain_ms'] * 1e3:9.1f} us  bound "
             f"{rec['bound_ms'] * 1e3:7.1f} us ({rec['bound_by']}, "
             f"{nbytes / 1e6:.1f} MB)  library {lib}  launches per cycle "
-            f"{launches_per_cycle[rname]:g}  [{name}, {smi}]")
-    log(f"V-cycle, box flagship fp32 through the kernels: {cycle_ms:.3f} "
-        f"ms per cycle (CUDA events over 10 cycles after 2) [{name}, {smi}]")
+            f"{pc[rname]:g} ({run} run)  [{name}, {smi}]")
+    log(f"V-cycle, box flagship fp32, main path ('pallas', auto): "
+        f"{main_ms:.3f} ms per cycle; 'window': {window_ms:.3f} ms per "
+        f"cycle (CUDA events over 10 cycles after 2) [{name}, {smi}]")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

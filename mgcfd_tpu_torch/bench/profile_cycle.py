@@ -2,7 +2,10 @@
 cycles of MGCFDSolver on the box flagship.
 
     python -m mgcfd_tpu_torch.bench.profile_cycle [--dtype float32]
-        [--accumulate window] [--cycles 5]
+        [--accumulate auto] [--cycles 5]
+
+--accumulate auto (the default) profiles the path a user's run takes on
+the box ('pallas'); --accumulate window profiles the CSR kernels there.
 
 Prints the wall time per cycle (host clock around cycles that end in a
 synchronize), the device-busy time per cycle (the sum of the CUDA kernels'
@@ -16,13 +19,15 @@ import argparse
 import sys
 import time
 
+from ..core.config import ACCUMULATE_MODES
+
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"])
-    p.add_argument("--accumulate", default="window",
-                   choices=["window", "segment"])
+    p.add_argument("--accumulate", default="auto",
+                   choices=ACCUMULATE_MODES)
     p.add_argument("--cycles", type=int, default=5)
     args = p.parse_args(argv)
 
@@ -52,7 +57,8 @@ def main(argv=None) -> int:
                and e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kernels) / args.cycles / 1e3
     print(f"{torch.cuda.get_device_name(0)}; box flagship, "
-          f"{args.dtype}, accumulate={args.accumulate}, {args.cycles} "
+          f"{args.dtype}, accumulate={solver.config.accumulate}, "
+          f"{args.cycles} "
           f"cycles under the profiler")
     print(f"wall {wall:.3f} ms/cycle; device busy {busy:.3f} ms/cycle; "
           f"device idle share {1 - busy / wall:.3f}")

@@ -3,8 +3,8 @@
     python -m mgcfd_tpu_torch.cli.main --synthetic 68,64,70,4 -g 10
 
 --synthetic NX,NY,NZ,L (the flagship box family), -g, --dtype,
---accumulate, --no-indirect-rw and --platform (cuda, the default, or
-cpu). Any other flag of the JAX CLI is refused as not ported yet.
+--accumulate, --transposed, --no-indirect-rw and --platform (cuda, the
+default, or cpu). Any other flag of the JAX CLI is refused as not ported yet.
 """
 from __future__ import annotations
 
@@ -25,8 +25,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-g", "--num-cycles", type=int, default=None)
     p.add_argument("--dtype", default=None, choices=["float32", "float64"])
     p.add_argument("--accumulate", default=None, choices=ACCUMULATE_MODES,
-                   help="'auto' (default): the kernels on CUDA, the plain "
-                        "edge-stream path on the CPU")
+                   help="'auto' (default): on CUDA the span kernels "
+                        "('pallas') on box-class meshes, else the CSR "
+                        "kernels ('window'); the plain edge-stream path "
+                        "('segment') on the CPU")
+    p.add_argument("--transposed", action="store_true",
+                   help="variable-major (5, N) state for "
+                        "--accumulate shift")
     p.add_argument("--no-indirect-rw", action="store_true",
                    help="skip the indirect_rw data-movement twin")
     p.add_argument("--platform", default="cuda", choices=["cuda", "cpu"])
@@ -46,6 +51,7 @@ def main(argv=None) -> int:
         cfg.dtype = args.dtype
     if args.accumulate:
         cfg.accumulate = args.accumulate
+    cfg.transposed |= args.transposed
     if args.no_indirect_rw:
         cfg.include_indirect_rw = False
 

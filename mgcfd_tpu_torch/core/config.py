@@ -10,12 +10,10 @@ from __future__ import annotations
 
 import dataclasses
 
-ACCUMULATE_MODES = ("auto", "segment", "window")
+ACCUMULATE_MODES = ("auto", "segment", "window", "pallas", "shift")
 
 # accumulate values of the JAX package that the port does not have yet
 _ACCUMULATE_ROADMAP = {
-    "pallas": "ROADMAP.md queue 2, items 5-6 (flux_shift.py kernels)",
-    "shift": "ROADMAP.md queue 2, items 5-6 (flux_shift.py kernels)",
     "ell": "ROADMAP.md queue 1, item 7 (prep/incidence.py)",
     "scatter": "ROADMAP.md queue 1, item 4 (accumulate_flux scatter mode)",
 }
@@ -38,7 +36,6 @@ _NOT_PORTED = {
     "checkpoint_every": "queue 1, item 9 (utils/checkpoint.py)",
     "resume": "queue 1, item 9 (utils/checkpoint.py)",
     "event_config_file": "queue 1, item 10 (monitor/events.py)",
-    "transposed": "queue 2, items 5-6 (shift path)",
     "num_partitions": "queue 1, item 12 (parallel/)",
     "partition_2d": "queue 1, item 12 (parallel/)",
     "shard_levels": "queue 1, item 12 (parallel/)",
@@ -49,7 +46,6 @@ _NOT_PORTED = {
     "flux_reuse_div": "queue 1, item 10 (monitor/csvout.py flux options)",
     "flux_reuse_factor": "queue 1, item 10 (monitor/csvout.py flux "
                          "options)",
-    "fuse_stage": "queue 2, items 5-6 (the pallas path it configures)",
     "mg_gather": "queue 1, item 4 (the scatter formulation of the MG "
                  "transfers)",
     "plan_cache_dir": "queue 1, item 7 (prep/window.py cached_plan)",
@@ -94,16 +90,27 @@ class SolverConfig:
     event_config_file: str = ""
 
     dtype: str = "float32"            # float32 | float64
-    # 'auto' resolves at solver build: 'window' on CUDA, 'segment' on the
-    # CPU. 'segment' is the plain edge-stream path (index_add_);
-    # 'window' is the kernel path — on the card an owner-sorted CSR
-    # (prep/csr.py), not the TPU's (8, 128) window plan. The name is kept
-    # so that the flags line up with mgcfd_tpu.
+    # 'auto' resolves at solver build: on CUDA 'pallas' when every
+    # level's shift plan covers >= 0.995 of its edges (box-class meshes),
+    # else 'window'; 'segment' on the CPU.
+    #   'segment'  the plain edge-stream path (index_add_);
+    #   'window'   the CSR kernels — on the card an owner-sorted CSR
+    #              (prep/csr.py), not the TPU's (8, 128) window plan;
+    #   'pallas'   the span kernels of box-class meshes (prep/shift.py,
+    #              kernels/shift.py), spill edges through the CSR kernels;
+    #   'shift'    the span decomposition in plain PyTorch.
+    # The names are kept so that the flags line up with mgcfd_tpu.
     accumulate: str = "auto"
+    # accumulate='pallas': one fused kernel launch per RK stage (True),
+    # or the span flux kernel, then boundary/wall, time step and invalid
+    # count as separate ops (False)
     fuse_stage: bool = True
     # accumulate='window' runs each RK stage as one fused kernel launch
     # (None or True); the unfused pipeline (False) is not ported
     fuse_window_stage: bool | None = None
+    # accumulate='shift': variable-major (5, N) state with the rolled span
+    # evaluation (True) or node-major per-span slices (False); the kernel
+    # modes are variable-major whatever its value
     transposed: bool = False
     window_tile_order: bool = True
     mg_gather: bool = True

@@ -22,26 +22,6 @@
 namespace mgcfd {
 
 template <typename T>
-__device__ __forceinline__ void bw_flux(const State8<T>& o,
-                                        const T* __restrict__ nc, int64_t n,
-                                        int64_t i, T r[5]) {
-  const T vx = o.mx * o.inv, vy = o.my * o.inv, vz = o.mz * o.inv;
-  const T bx = nc[i], by = nc[n + i], bz = nc[2 * n + i];
-  const T hx = T(0.5) * nc[3 * n + i], hy = T(0.5) * nc[4 * n + i],
-          hz = T(0.5) * nc[5 * n + i];
-  const T de_p = o.E + o.p;
-  r[0] = hx * o.mx + hy * o.my + hz * o.mz + nc[6 * n + i];
-  r[1] = bx * o.p + hx * (vx * o.mx + o.p) + hy * (vx * o.my) +
-         hz * (vx * o.mz) + nc[7 * n + i];
-  r[2] = by * o.p + hx * (vy * o.mx) + hy * (vy * o.my + o.p) +
-         hz * (vy * o.mz) + nc[8 * n + i];
-  r[3] = bz * o.p + hx * (vz * o.mx) + hy * (vz * o.my) +
-         hz * (vz * o.mz + o.p) + nc[9 * n + i];
-  r[4] = hx * (vx * de_p) + hy * (vy * de_p) + hz * (vz * de_p) +
-         nc[10 * n + i];
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
     fused_stage_kernel(const int* __restrict__ row_ptr,
                        const int* __restrict__ col, const T* __restrict__ w,
@@ -61,20 +41,10 @@ __global__ void __launch_bounds__(kThreads)
       const T a = acc[c] + bw[c];
       const T qn = old[c * n + i] + f * a;
       out[c * n + i] = qn;
-      bad += isfinite(qn) ? 0 : 1;
-      if (c == 0 || c == 4) bad += qn < T(0) ? 1 : 0;
+      bad += invalid_value(c, qn);
     }
   }
-  for (int off = 16; off > 0; off >>= 1)
-    bad += __shfl_down_sync(0xffffffffu, bad, off);
-  __shared__ int warp_bad[kThreads / 32];
-  if ((threadIdx.x & 31) == 0) warp_bad[threadIdx.x >> 5] = bad;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int k = 0; k < kThreads / 32; ++k) total += warp_bad[k];
-    if (total) atomicAdd(invalid, total);
-  }
+  add_block_count(bad, invalid);
 }
 
 template <typename T>

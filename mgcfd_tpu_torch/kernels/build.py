@@ -32,6 +32,9 @@ _SIGNATURES = {
     "mgcfd_edge_csr": [_I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P],
     "mgcfd_fused_stage": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
                           _P],
+    "mgcfd_shift_flux": [_I, _I, _P, _I, _P, _P, _P, _I, _P],
+    "mgcfd_shift_fused_stage": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _P],
 }
 
 _lib = None

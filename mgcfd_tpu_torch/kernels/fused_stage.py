@@ -41,9 +41,15 @@ def fused_stage_plain(csr: DeviceCSR, nc, q, old, fac):
     """What the kernel computes: (q_next (5, N), invalid count int32)."""
     acc = edge_csr.edge_csr_plain("flux", csr, q)
     qnew = old + fac * (acc + bw_flux(complete8(q), nc))
-    bad = ((~torch.isfinite(qnew)).sum() + (qnew[0] < 0).sum()
-           + (qnew[4] < 0).sum())
-    return qnew, bad.to(torch.int32)
+    return qnew, invalid_count(qnew)
+
+
+def invalid_count(q):
+    """Count of NaN/Inf anywhere and of negative density or energy in a
+    (5, N) state, as a 0-d int32 (validation.cpp:107-138)."""
+    bad = ((~torch.isfinite(q)).sum() + (q[0] < 0).sum()
+           + (q[4] < 0).sum())
+    return bad.to(torch.int32)
 
 
 class FusedStage:

@@ -1,0 +1,185 @@
+"""shift: the span-decomposed flux of box-class meshes — the CUDA kernels
+csrc/shift_flux.cu (flux and rw modes) and csrc/shift_fused_stage.cu,
+their wrappers and their plain PyTorch versions.
+
+Replace mgcfd_tpu/pallas/flux_shift.py::_kernel (both modes) and
+::_fused_kernel. For node i and each span d of the plan, in plan order,
+    acc = (acc + val_d(i)) - val_d(i - d),
+    val_d(j) = edge(q[j], q[j + d], w_d[j]),
+where an endpoint outside [0, N) is quiescent gas (rho = 1, momentum 0,
+E = 1) with zero weight, as the TPU kernel masks its lanes (the plain
+versions below spell this out). The wrappers launch the kernels for CUDA
+tensors and take the plain versions only for tensors on the CPU; anything
+else raises. Each role has its own wrapper instance with its own launch
+count (``launches``): ``flux``, ``rw`` and ``fused_stage``.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..prep.shift import ShiftPlan
+from . import build, edge_csr
+from .edge_csr import complete8, flux_math
+from .fused_stage import bw_flux, invalid_count
+
+MAX_SPANS = 16   # kMaxSpans in csrc/shift_common.cuh
+MODES = {"flux": 0, "rw": 1}
+
+
+@dataclasses.dataclass
+class DeviceShift:
+    """A ShiftPlan's spans on a device: weights (D, 4, N), rows wx, wy,
+    wz and |w| (computed in fp64 on the host, then cast), zero where a
+    row has no edge."""
+
+    num_nodes: int
+    deltas: tuple
+    w: torch.Tensor
+
+    @classmethod
+    def from_plan(cls, plan: ShiftPlan, num_nodes: int, device,
+                  dtype) -> "DeviceShift":
+        if len(plan.deltas) > MAX_SPANS:
+            raise ValueError(f"{len(plan.deltas)} spans; the kernels take "
+                             f"at most {MAX_SPANS}")
+        w = np.zeros((len(plan.deltas), 4, num_nodes))
+        for i, wd in enumerate(plan.weights):
+            w[i, :3, :wd.shape[0]] = wd.T
+            w[i, 3, :wd.shape[0]] = np.sqrt((wd * wd).sum(axis=1))
+        return cls(num_nodes=num_nodes,
+                   deltas=tuple(int(d) for d in plan.deltas),
+                   w=torch.as_tensor(w).to(device=device, dtype=dtype))
+
+
+def _quiescent(n: int, like: torch.Tensor) -> torch.Tensor:
+    q = torch.zeros((5, n), dtype=like.dtype, device=like.device)
+    q[0] = 1.0
+    q[4] = 1.0
+    return q
+
+
+def edge_values(mode: str, qa, qb, w):
+    """(5, L) edge values of rows with a-states qa, b-states qb and
+    weights w (4, L): flux_shift._edge_val_ch or, in rw mode,
+    _edge_val_rw."""
+    if mode == "rw":
+        return (qa + qb) + ((w[0] + w[1]) + w[2])
+    return flux_math(complete8(qa), complete8(qb), w[0], w[1], w[2], w[3])
+
+
+def shift_plain(mode: str, sh: DeviceShift, q):
+    """What the flux and rw modes compute, one span at a time."""
+    n = q.shape[1]
+    acc = torch.zeros_like(q)
+    for k, d in enumerate(sh.deltas):
+        quiet = _quiescent(d, q)
+        # val_d(j) for j in [0, N): b-endpoint j + d, quiescent past N-1
+        val = edge_values(mode, q, torch.cat([q[:, d:], quiet], dim=1),
+                          sh.w[k])
+        # val_d(j) for j in [-d, 0): quiescent a-endpoint, zero weight
+        low = edge_values(mode, quiet, q[:, :d], torch.zeros(
+            (4, d), dtype=q.dtype, device=q.device))
+        acc = acc + val
+        acc = acc - torch.cat([low, val[:, :n - d]], dim=1)
+    return acc
+
+
+def shift_fused_stage_plain(sh: DeviceShift, nc, q, old, fac, spill=None):
+    """What the fused kernel computes: (q_next (5, N), invalid count)."""
+    acc = shift_plain("flux", sh, q) + bw_flux(complete8(q), nc)
+    if spill is not None:
+        acc = acc + spill
+    qnew = old + fac * acc
+    return qnew, invalid_count(qnew)
+
+
+def _check(sh: DeviceShift, q, name: str) -> None:
+    if q.dtype not in (torch.float32, torch.float64) or \
+            q.dtype != sh.w.dtype:
+        raise TypeError(f"{name}: dtype {q.dtype} with weights "
+                        f"{sh.w.dtype}; float32 or float64, matching")
+    n = sh.num_nodes
+    if tuple(q.shape) != (5, n) or not q.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous (5, {n}) state, got "
+                         f"{tuple(q.shape)}")
+    if sh.w.device != q.device:
+        raise ValueError(f"{name}: weights and state on different devices")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {q.device}")
+
+
+def _c_deltas(sh: DeviceShift):
+    return (ctypes.c_int64 * max(1, len(sh.deltas)))(*sh.deltas)
+
+
+class ShiftFlux:
+    """The shift_flux kernel in one mode, for one role on the path."""
+
+    def __init__(self, name: str, mode: str):
+        self.name = name
+        self.mode = mode
+        self.launches = 0
+
+    def __call__(self, sh: DeviceShift, q: torch.Tensor) -> torch.Tensor:
+        """(5, N) state -> (5, N) internal flux (or its rw twin)."""
+        _check(sh, q, self.name)
+        if not edge_csr._on_card(q):
+            return shift_plain(self.mode, sh, q)
+        out = torch.empty_like(q)
+        deltas = _c_deltas(sh)
+        rc = build.library().mgcfd_shift_flux(
+            int(q.dtype == torch.float64), MODES[self.mode],
+            ctypes.addressof(deltas), len(sh.deltas), sh.w.data_ptr(),
+            q.data_ptr(), out.data_ptr(), sh.num_nodes,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        build.check(rc, self.name)
+        self.launches += 1
+        return out
+
+
+class ShiftFusedStage:
+    """The shift_fused_stage kernel; ``launches`` counts kernel launches."""
+
+    def __init__(self, name: str = "shift.fused_stage"):
+        self.name = name
+        self.launches = 0
+
+    def __call__(self, sh: DeviceShift, nc, q, old, fac, spill=None):
+        """q, old: (5, N); nc: (11, N); fac: (N,) = step factor /
+        (RK + 1 - j); spill: (5, N) flux of the plan's spill edges, or
+        None. Returns (q_next, invalid count as a 0-d int32)."""
+        _check(sh, q, self.name)
+        n = sh.num_nodes
+        operands = [("old", old, (5, n)), ("nc", nc, (11, n)),
+                    ("fac", fac, (n,))]
+        if spill is not None:
+            operands.append(("spill", spill, (5, n)))
+        for what, t, shape in operands:
+            if tuple(t.shape) != shape or t.dtype != q.dtype or \
+                    t.device != q.device or not t.is_contiguous():
+                raise ValueError(f"{self.name}: {what} must be a contiguous "
+                                 f"{shape} {q.dtype} tensor on {q.device}")
+        if not edge_csr._on_card(q):
+            return shift_fused_stage_plain(sh, nc, q, old, fac, spill)
+        out = torch.empty_like(q)
+        invalid = torch.zeros(1, dtype=torch.int32, device=q.device)
+        deltas = _c_deltas(sh)
+        rc = build.library().mgcfd_shift_fused_stage(
+            int(q.dtype == torch.float64), ctypes.addressof(deltas),
+            len(sh.deltas), sh.w.data_ptr(), q.data_ptr(), old.data_ptr(),
+            fac.data_ptr(), nc.data_ptr(),
+            None if spill is None else spill.data_ptr(), out.data_ptr(),
+            invalid.data_ptr(), n,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        build.check(rc, self.name)
+        self.launches += 1
+        return out, invalid[0]
+
+
+flux = ShiftFlux("shift.flux", "flux")
+rw = ShiftFlux("shift.rw", "rw")
+fused_stage = ShiftFusedStage()

@@ -8,7 +8,9 @@ entries keep their order in the half-edge list.
 
   flux      (build_window_plan, window.py:396): each internal edge
             (a, b, w) gives (a, b, +w) and (b, a, -w); weights are the
-            rows w0, w1, w2 and the precomputed |w|.
+            rows w0, w1, w2 and the precomputed |w|. build_edge_csr
+            makes the same plan of any edge list: the shift path's
+            spill edges.
   restrict  (build_restrict_window, window.py:706): coarse owner, fine
             child, weight 1/count, plus the `mapped` mask.
   prolong   (composed_prolong_halves, window.py:449-512): the composed
@@ -49,15 +51,22 @@ def _csr(num_rows: int, num_cols: int, owner, nbr, w) -> CSRPlan:
                    w=np.ascontiguousarray(np.asarray(w)[:, order]))
 
 
+def build_edge_csr(num_nodes: int, a, b, w) -> CSRPlan:
+    """Both halves of each edge (a, b, w) — (a, b, +w) and (b, a, -w) —
+    with weights (w0, w1, w2, |w|), |w| in fp64 on the host."""
+    a = np.asarray(a, np.int64)
+    b = np.asarray(b, np.int64)
+    w = np.asarray(w, np.float64).reshape(-1, 3)
+    ewt = np.sqrt((w ** 2).sum(axis=1))
+    wt = np.concatenate([w.T, -w.T], axis=1)
+    wt = np.concatenate([wt, np.concatenate([ewt, ewt])[None]], axis=0)
+    return _csr(num_nodes, num_nodes, np.concatenate([a, b]),
+                np.concatenate([b, a]), wt)
+
+
 def build_flux_csr(lvl: MeshLevel) -> CSRPlan:
-    """Both halves of every internal edge, weights (w0, w1, w2, |w|)."""
-    a = lvl.edge_a.astype(np.int64)
-    b = lvl.edge_b.astype(np.int64)
-    ewt = np.sqrt((lvl.edge_w ** 2).sum(axis=1))
-    w = np.concatenate([lvl.edge_w.T, -lvl.edge_w.T], axis=1)
-    w = np.concatenate([w, np.concatenate([ewt, ewt])[None]], axis=0)
-    n = lvl.num_nodes
-    return _csr(n, n, np.concatenate([a, b]), np.concatenate([b, a]), w)
+    """Both halves of every internal edge of a level."""
+    return build_edge_csr(lvl.num_nodes, lvl.edge_a, lvl.edge_b, lvl.edge_w)
 
 
 def build_restrict_csr(mapping: np.ndarray, num_fine: int,

@@ -9,14 +9,23 @@ each, then prolong/visit pairs down to level 1 (level 0 is visited at the
 start of the next cycle). PyTorch runs it eagerly; the host reads one RMS
 and one invalid count per cycle.
 
-Two paths, chosen by SolverConfig.accumulate:
+Paths, chosen by SolverConfig.accumulate:
   'segment'  node-major (N, 5) state, plain edge-stream ops (index_add_)
              — the CPU path and the card's plain reference;
   'window'   variable-major (5, N) state through the CUDA kernels over
              owner-sorted CSR plans (fused RK stage, rw twin, restriction
              and composed prolongation); on the CPU the same wrappers run
              their plain versions. The edge_csr flux mode is not on this
-             path: the fused stage carries its row loop.
+             path: the fused stage carries its row loop;
+  'pallas'   variable-major state through the span kernels of box-class
+             meshes (prep/shift.py): one fused RK stage per launch (or,
+             with fuse_stage=False, the span flux kernel and separate
+             boundary/wall, time step and invalid count), the span rw
+             twin, and the CSR kernels for the MG transfers and for the
+             edges the span plan leaves over (spill);
+  'shift'    the span decomposition in plain PyTorch: node-major per-span
+             slices, or with transposed=True the variable-major rolled
+             evaluation.
 """
 from __future__ import annotations
 
@@ -29,8 +38,8 @@ import torch
 from ..core.config import SolverConfig
 from ..core.constants import NVAR, RK, MeshVariant, far_field_state
 from ..core.types import MultigridMesh
-from ..kernels import DeviceCSR, edge_csr
-from ..kernels.fused_stage import fused_stage
+from ..kernels import DeviceCSR, DeviceShift, edge_csr, shift
+from ..kernels.fused_stage import fused_stage, invalid_count
 from ..mesh.build import apply_ewt_conditioning
 from ..ops import (accumulate_flux, boundary_edge_flux, calc_rms,
                    compute_step_factor, compute_step_factor_legacy,
@@ -39,8 +48,9 @@ from ..ops import (accumulate_flux, boundary_edge_flux, calc_rms,
                    prolong_residuals_interpolate, residual, time_step,
                    wall_edge_flux)
 from ..ops import tops
-from ..prep.csr import build_flux_csr, build_prolong_csr, \
+from ..prep.csr import build_edge_csr, build_flux_csr, build_prolong_csr, \
     build_restrict_csr
+from ..prep.shift import build_shift_plan, shift_flux
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -58,9 +68,15 @@ class DeviceLevel:
     wedge_b: torch.Tensor
     wedge_w: torch.Tensor
     mg_mapping: Optional[torch.Tensor]
-    # kernel path (accumulate='window')
+    # accumulate='window'
     csr: Optional[DeviceCSR] = None        # flux plan of this level
+    # accumulate='window', 'pallas', transposed 'shift'
     nc: Optional[torch.Tensor] = None      # (11, N) boundary/wall consts
+    # accumulate='pallas', 'shift': the span plan and its spill edges
+    shift: Optional[DeviceShift] = None
+    spill_csr: Optional[DeviceCSR] = None  # 'pallas'; None if no spill
+    spill: Optional[tuple] = None          # 'shift': (a, b, w) tensors
+    # MG transfers through the kernels ('window', 'pallas')
     restrict_csr: Optional[DeviceCSR] = None   # this level -> next
     restrict_mapped: Optional[torch.Tensor] = None
     prolong_csr: Optional[DeviceCSR] = None    # next level -> this
@@ -84,34 +100,59 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def resolve_accumulate(config: SolverConfig, device: torch.device) -> None:
-    """accumulate='auto' -> 'window' (the kernels) on CUDA at fp32 and
-    fp64 alike (the H100 runs fp64 natively); 'segment' on the CPU.
-    Mutates config in place."""
-    if config.accumulate == "auto":
-        config.accumulate = "window" if device.type == "cuda" else "segment"
+SHIFT_COVERAGE = 0.995   # auto takes the span kernels at this coverage
+
+
+def resolve_accumulate(mesh: MultigridMesh, config: SolverConfig,
+                       device: torch.device):
+    """accumulate='auto' -> on CUDA 'pallas' when every level's shift plan
+    covers >= SHIFT_COVERAGE of its edges (box-class meshes), else
+    'window', at fp32 and fp64 alike (the H100 runs fp64 natively);
+    'segment' on the CPU. Mutates config in place. Returns the levels'
+    shift plans when it built them, else None, so that the caller need
+    not build them again."""
+    if config.accumulate != "auto":
+        return None
+    if device.type != "cuda":
+        config.accumulate = "segment"
+        return None
+    plans = [build_shift_plan(lv) for lv in mesh.levels]
+    cov = min(p.coverage for p in plans)
+    config.accumulate = "pallas" if cov >= SHIFT_COVERAGE else "window"
+    return plans
+
+
+def variable_major(config: SolverConfig) -> bool:
+    """Whether the path keeps the state as (5, N)."""
+    return (config.accumulate in ("window", "pallas")
+            or (config.accumulate == "shift" and config.transposed))
 
 
 def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
                         device: torch.device) -> DeviceMesh:
     """Condition the edge weights per mesh variant (euler3d:333-352) on
-    copies, cast to the configured dtype, upload, and build the CSR plans
-    and boundary/wall constants of the kernel path."""
-    resolve_accumulate(config, device)
+    copies, cast to the configured dtype, upload, and build the plans and
+    boundary/wall constants of the chosen path."""
     dtype = DTYPES[config.dtype]
     levels = [dataclasses.replace(lv, edge_w=lv.edge_w.copy(),
                                   bedge_w=lv.bedge_w.copy(),
                                   wedge_w=lv.wedge_w.copy())
               for lv in mesh.levels]
     apply_ewt_conditioning(levels, mesh.variant)
+    # the plans' spans and spill edges do not depend on the weights, so
+    # plans built on the conditioned levels decide `auto` too
+    plans = resolve_accumulate(dataclasses.replace(mesh, levels=levels),
+                               config, device)
+    mode = config.accumulate
+    if mode in ("pallas", "shift") and plans is None:
+        plans = [build_shift_plan(lv) for lv in levels]
     ff_flux = far_field_state(np.float64)[1]
 
     def put(x, dt=dtype):
         return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dt)
 
-    window = config.accumulate == "window"
     dlevels = []
-    for lv in levels:
+    for li, lv in enumerate(levels):
         d = DeviceLevel(
             num_nodes=lv.num_nodes, volumes=put(lv.volumes),
             coords=None if lv.coords is None else put(lv.coords),
@@ -121,14 +162,28 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
             wedge_b=put(lv.wedge_b, torch.int64), wedge_w=put(lv.wedge_w),
             mg_mapping=None if lv.mg_mapping is None
             else put(lv.mg_mapping, torch.int64))
-        if window:
+        if mode == "window":
             d.csr = DeviceCSR.from_plan(build_flux_csr(lv), device, dtype)
+        if mode in ("pallas", "shift"):
+            plan = plans[li]
+            d.shift = DeviceShift.from_plan(plan, lv.num_nodes, device,
+                                            dtype)
+            if mode == "shift":
+                d.spill = (put(plan.spill_a, torch.int64),
+                           put(plan.spill_b, torch.int64),
+                           put(plan.spill_w))
+            elif plan.spill_a.shape[0]:
+                d.spill_csr = DeviceCSR.from_plan(
+                    build_edge_csr(lv.num_nodes, plan.spill_a,
+                                   plan.spill_b, plan.spill_w),
+                    device, dtype)
+        if variable_major(config):
             bdn, wln, wlc = tops.build_dense_boundary_wall(
                 lv.num_nodes, lv.bedge_b, lv.bedge_w, lv.wedge_b,
                 lv.wedge_w, ff_flux)
             d.nc = put(np.concatenate([bdn, wln, wlc], axis=0))
         dlevels.append(d)
-    if window:
+    if mode in ("window", "pallas"):
         for i in range(len(levels) - 1):
             fine, coarse = levels[i], levels[i + 1]
             plan, mapped = build_restrict_csr(
@@ -143,17 +198,29 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
 
 
 # ---------------------------------------------------------------------------
-# one level, plain edge-stream path (node-major)
+# one level, node-major paths ('segment', 'shift')
 # ---------------------------------------------------------------------------
 
 def _compute_fluxes(lvl: DeviceLevel, variables, ff_flux):
-    """Internal + boundary + wall flux, accumulated with index_add_."""
-    val_i = internal_edge_flux(variables[lvl.edge_a], variables[lvl.edge_b],
-                               lvl.edge_w)
+    """Internal + boundary + wall flux: index_add_ over the edge stream,
+    or on the 'shift' path the per-span slices plus the boundary and wall
+    edges summed apart and then added (the order of mgcfd_tpu)."""
     val_bd = boundary_edge_flux(variables[lvl.bedge_b], lvl.bedge_w)
     val_w = wall_edge_flux(variables[lvl.wedge_b], lvl.wedge_w, ff_flux)
-    return accumulate_flux(lvl.num_nodes, lvl.edge_a, lvl.edge_b, val_i,
-                           lvl.bedge_b, val_bd, lvl.wedge_b, val_w)
+    if lvl.shift is None:
+        val_i = internal_edge_flux(variables[lvl.edge_a],
+                                   variables[lvl.edge_b], lvl.edge_w)
+        return accumulate_flux(lvl.num_nodes, lvl.edge_a, lvl.edge_b,
+                               val_i, lvl.bedge_b, val_bd, lvl.wedge_b,
+                               val_w)
+    n = lvl.num_nodes
+    sh = lvl.shift
+    weights = [sh.w[k, :3, :n - d].T for k, d in enumerate(sh.deltas)]
+    flux = shift_flux(sh.deltas, weights, lvl.spill, variables,
+                      internal_edge_flux, n)
+    bw = torch.zeros_like(flux).index_add_(
+        0, torch.cat([lvl.bedge_b, lvl.wedge_b]), torch.cat([val_bd, val_w]))
+    return flux + bw
 
 
 def _indirect_rw(lvl: DeviceLevel, variables):
@@ -185,7 +252,7 @@ def _visit(lvl: DeviceLevel, variables, ff_flux, config: SolverConfig,
 
 
 # ---------------------------------------------------------------------------
-# one level, kernel path (variable-major)
+# one level, variable-major paths ('window', 'pallas', transposed 'shift')
 # ---------------------------------------------------------------------------
 
 def t_step_factor(lvl: DeviceLevel, q, legacy_step: bool):
@@ -218,26 +285,101 @@ def _visit_window(lvl: DeviceLevel, q, config: SolverConfig,
     return q, q - old, invalid
 
 
+def _span_flux(lvl: DeviceLevel, q, kernels: bool):
+    """Internal flux over the spans plus the spill edges, (5, N): through
+    the kernels ('pallas'), or the rolled plain evaluation and a segment
+    sum of the spill edges (transposed 'shift')."""
+    sh = lvl.shift
+    if kernels:
+        flux = shift.flux(sh, q)
+        if lvl.spill_csr is not None:
+            flux = flux + edge_csr.flux(lvl.spill_csr, q)
+        return flux
+    flux = (tops.t_shift_flux_rolled(sh.deltas, sh.w, q) if sh.deltas
+            else torch.zeros_like(q))
+    sa, sb, sw = lvl.spill
+    if sa.shape[0]:
+        val = tops.t_internal_edge_flux(q[:, sa], q[:, sb], sw.T)
+        flux = flux + tops.t_segment_accumulate(
+            torch.cat([val, -val], dim=1), torch.cat([sa, sb]),
+            q.shape[1])
+    return flux
+
+
+def _span_rw(lvl: DeviceLevel, q, kernels: bool):
+    """The indirect_rw twin of _span_flux; its result is discarded."""
+    sh = lvl.shift
+    if kernels:
+        shift.rw(sh, q)
+        if lvl.spill_csr is not None:
+            edge_csr.rw(lvl.spill_csr, q)
+        return
+    if sh.deltas:
+        tops.t_shift_rw_rolled(sh.deltas, sh.w, q)
+    sa, sb, sw = lvl.spill
+    if sa.shape[0]:
+        valr = q[:, sa] + q[:, sb] + torch.sum(sw.T, dim=0)[None]
+        tops.t_segment_accumulate(torch.cat([valr, -valr], dim=1),
+                                  torch.cat([sa, sb]), q.shape[1])
+
+
+def _visit_span(lvl: DeviceLevel, q, config: SolverConfig,
+                legacy_step: bool):
+    """The smoothing pass of the span paths on a (5, N) state
+    (mgcfd_tpu's _visit_transposed). 'pallas' with fuse_stage: ONE
+    shift.fused_stage launch per RK stage, the spill edges' flux (from
+    the edge_csr flux kernel) entering as its operand. Otherwise each
+    stage is the span flux, plus the dense boundary/wall flux, then the
+    time step and the invalid count. The rw twin runs after each stage."""
+    kernels = config.accumulate == "pallas"
+    old = q
+    sf = t_step_factor(lvl, q, legacy_step)
+    invalid = torch.zeros((), dtype=torch.int64, device=q.device)
+    for j in range(RK):
+        if kernels and config.fuse_stage:
+            spill = (None if lvl.spill_csr is None
+                     else edge_csr.flux(lvl.spill_csr, q))
+            q, inv = shift.fused_stage(lvl.shift, lvl.nc, q, old,
+                                       sf / float(RK + 1 - j), spill)
+        else:
+            flux = _span_flux(lvl, q, kernels) \
+                + tops.t_dense_boundary_wall_flux(
+                    q, lvl.nc[0:3], lvl.nc[3:6], lvl.nc[6:11])
+            q = tops.t_time_step(j, sf, flux, old)
+            inv = invalid_count(q)
+        invalid = invalid + inv
+        if config.include_indirect_rw:
+            _span_rw(lvl, q, kernels)
+    return q, q - old, invalid
+
+
 # ---------------------------------------------------------------------------
 # multigrid transfers
 # ---------------------------------------------------------------------------
 
 def apply_restrict(fine: DeviceLevel, coarse: DeviceLevel, vars_f, vars_c,
-                   window: bool):
+                   tstate: bool):
     """Restrict the fine variables onto the coarse level (euler3d:547-552);
-    unmapped coarse nodes keep their value."""
-    if window:
+    unmapped coarse nodes keep their value. Through the kernels where the
+    level has their plan; tstate: the state is (5, N)."""
+    if fine.restrict_csr is not None:
         mean = edge_csr.restrict(fine.restrict_csr, vars_f)
         return torch.where(fine.restrict_mapped[None], mean, vars_c)
+    if tstate:
+        return apply_restrict(fine, coarse, vars_f.T, vars_c.T,
+                              False).T.contiguous()
     return mg_restrict(vars_f, vars_c, fine.mg_mapping, coarse.num_nodes)
 
 
 def apply_prolong(fine: DeviceLevel, coarse: DeviceLevel, res_c, res_f,
-                  vars_f, window: bool):
+                  vars_f, tstate: bool):
     """vars_f += res_f - interpolated coarse residual (mg_loops.cpp:
     678-864, with the a1 -> b2 quirk)."""
-    if window:
+    if fine.prolong_csr is not None:
         return vars_f + (res_f - edge_csr.prolong(fine.prolong_csr, res_c))
+    if tstate:
+        return apply_prolong(fine, coarse, res_c.T, res_f.T, vars_f.T,
+                             False).T.contiguous()
     return prolong_residuals_interpolate(
         res_c, res_f, vars_f, fine.mg_mapping, coarse.coords, fine.coords,
         fine.edge_a, fine.edge_b)
@@ -261,7 +403,7 @@ class MGCFDSolver:
         self.mesh = mesh
         self.dmesh = prepare_device_mesh(mesh, self.config, self.device)
         self.dtype = DTYPES[self.config.dtype]
-        self._window = self.config.accumulate == "window"
+        self._tstate = variable_major(self.config)
         self.state = self._layout(
             [np.tile(far_field_state(np.float64)[0], (lv.num_nodes, 1))
              for lv in mesh.levels],
@@ -274,7 +416,7 @@ class MGCFDSolver:
         def put(a):
             t = torch.as_tensor(np.asarray(a, np.float64)).to(
                 device=self.device, dtype=self.dtype)
-            return t.T.contiguous() if self._window else t
+            return t.T.contiguous() if self._tstate else t
         return {"variables": [put(v) for v in variables],
                 "residuals": [put(r) for r in residuals]}
 
@@ -294,11 +436,17 @@ class MGCFDSolver:
         invalid_total = torch.zeros((), dtype=torch.int64,
                                     device=self.device)
 
+        mode = self.config.accumulate
+        tstate = self._tstate
+
         def visit(lev):
             nonlocal invalid_total
-            if self._window:
+            if mode == "window":
                 v, res, inv = _visit_window(levels[lev], variables[lev],
                                             self.config, legacy)
+            elif tstate:
+                v, res, inv = _visit_span(levels[lev], variables[lev],
+                                          self.config, legacy)
             else:
                 v, res, inv = _visit(levels[lev], variables[lev],
                                      self.dmesh.ff_flux, self.config,
@@ -315,14 +463,14 @@ class MGCFDSolver:
                 rms = calc_rms(res, levels[0].num_nodes)
             variables[lev + 1] = apply_restrict(
                 levels[lev], levels[lev + 1], variables[lev],
-                variables[lev + 1], self._window)
+                variables[lev + 1], tstate)
         res = visit(L - 1)
         if L == 1:
             rms = calc_rms(res, levels[0].num_nodes)
         for lev in range(L - 2, -1, -1):
             variables[lev] = apply_prolong(
                 levels[lev], levels[lev + 1], residuals[lev + 1],
-                residuals[lev], variables[lev], self._window)
+                residuals[lev], variables[lev], tstate)
             if lev > 0:
                 visit(lev)
         return rms, invalid_total
@@ -350,7 +498,7 @@ class MGCFDSolver:
         return self.state
 
     def _node_major(self, t: torch.Tensor) -> torch.Tensor:
-        return t.T if self._window else t
+        return t.T if self._tstate else t
 
     def variables(self, level: int = 0) -> np.ndarray:
         """(N, 5) variables of one level, as float64 numpy."""

@@ -2,9 +2,12 @@
 
 Both start from identical arrays (convert.mesh_from_arrays). The JAX leg
 is SolverConfig(dtype="float64"), which `auto` sends to its segment path
-on the CPU. The port runs its plain edge-stream path ('segment') and its
-kernel path ('window'), whose wrappers take the plain versions for CPU
-tensors. Per-cycle RMS and final level-0 variables are
+on the CPU. The port runs its plain edge-stream path ('segment'), its
+kernel paths ('window', and 'pallas' fused and unfused), whose wrappers
+take the plain versions for CPU tensors, and its plain span paths
+('shift', node-major and transposed). On the tet almost every edge of
+the span paths is a spill edge. Per-cycle RMS and final level-0
+variables are
 held to identify_differences (validate/golden.py:93-112): relative 1e-8,
 absolute floor 1e-15 for FVCORR and 3e-19 otherwise."""
 import numpy as np
@@ -26,7 +29,12 @@ from mgcfd_tpu_torch.validate import identify_differences
 torch.set_num_threads(1)
 CYCLES = 3
 PATHS = {"segment": {"accumulate": "segment"},
-         "window": {"accumulate": "window"}}
+         "window": {"accumulate": "window"},
+         "pallas": {"accumulate": "pallas"},
+         "pallas-unfused": {"accumulate": "pallas", "fuse_stage": False},
+         "shift": {"accumulate": "shift"},
+         "shift-transposed": {"accumulate": "shift", "transposed": True}}
+NODE_MAJOR = ("segment", "shift")
 _JAX_RUNS: dict = {}
 
 
@@ -67,7 +75,7 @@ def test_cycles_match_jax(kind, variant, path):
     identify_differences(s.variables(0), ref.variables(0), variant)
 
 
-@pytest.mark.parametrize("path", ["segment", "window"])
+@pytest.mark.parametrize("path", ["segment", "window", "pallas"])
 def test_start_from_a_shared_state(path):
     """state_from_arrays carries a mid-run JAX state into the port; both
     then run on to the same variables, levels and step factors."""
@@ -96,7 +104,7 @@ def test_nan_guard_raises(path):
     mesh = jax_mg_box(8, 6, 6, 2, h=(0.1, 0.1, 0.1))
     s = port(mesh, path)
     v = s.state["variables"][0]
-    if path == "segment":
+    if path in NODE_MAJOR:
         v[3, 0] = -5.0
     else:
         v[0, 3] = -5.0
@@ -109,7 +117,7 @@ def test_accumulate_resolution_and_unported_options():
     cfg = SolverConfig(dtype="float64")
     MGCFDSolver(mesh, cfg, device="cpu")
     assert cfg.accumulate == "segment"      # auto on the CPU
-    for mode in ("pallas", "shift", "ell", "scatter"):
+    for mode in ("ell", "scatter"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             MGCFDSolver(mesh, SolverConfig(accumulate=mode), device="cpu")
     for kw in ({"flux_cripple": True}, {"num_partitions": 2},
@@ -131,8 +139,7 @@ UNPORTED = {
     "flux_precompute_edge_weights": True, "flux_reuse_flux": True,
     "flux_reuse_div": True, "flux_reuse_factor": True,
     "checkpoint_dir": "c", "checkpoint_every": 1, "resume": True,
-    "event_config_file": "e", "fuse_stage": False,
-    "fuse_window_stage": False, "transposed": True,
+    "event_config_file": "e", "fuse_window_stage": False,
     "window_tile_order": False, "mg_gather": False, "plan_cache_dir": "p",
     "compile_cache_dir": "c", "num_partitions": 2, "partition_2d": "2x2",
     "shard_levels": 2, "monitor_mode": "instrumented",
@@ -149,13 +156,24 @@ def test_unported_field_raises(field):
         SolverConfig(**{field: UNPORTED[field]}).validate()
 
 
+@pytest.mark.parametrize("kind", ["box", "tet"])
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
-def test_auto_resolution(device):
-    """auto is the kernels on CUDA, whatever the other fields, and the
-    plain path on the CPU."""
+def test_auto_resolution(device, kind):
+    """auto on CUDA is the span kernels ('pallas') where every level's
+    shift plan covers the edges (the box) and the CSR kernels ('window')
+    elsewhere (the tet, covered 3-18%), at fp32 and fp64 alike; on the
+    CPU it is the plain path. The plans it builds come back for reuse."""
     from mgcfd_tpu_torch.solver.solver import resolve_accumulate
+    mesh = mesh_from_arrays(jax_mesh(kind, MeshVariant.M6_WING))
     for dtype in ("float32", "float64"):
         cfg = SolverConfig(dtype=dtype)
-        resolve_accumulate(cfg, torch.device(device))
-        assert cfg.accumulate == ("window" if device == "cuda"
-                                  else "segment")
+        plans = resolve_accumulate(mesh, cfg, torch.device(device))
+        if device == "cpu":
+            assert cfg.accumulate == "segment" and plans is None
+        else:
+            assert cfg.accumulate == ("pallas" if kind == "box"
+                                      else "window")
+            assert len(plans) == mesh.num_levels
+        explicit = SolverConfig(dtype=dtype, accumulate="window")
+        resolve_accumulate(mesh, explicit, torch.device(device))
+        assert explicit.accumulate == "window"
