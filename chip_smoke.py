@@ -9,31 +9,36 @@ What it does, in order, printing each step with the elapsed seconds:
   1. arms a watchdog that dumps every thread's traceback and exits
      non-zero after 8 minutes (the run takes about one);
   2. prints the card (torch and nvidia-smi);
-  3. builds the CUDA kernels with one nvcc call;
+  3. builds the CUDA kernels with one nvcc call, and checks that each C
+     entry point refuses a dtype code it does not know;
   4. holds every kernel against its plain PyTorch version on the card, in
-     fp64 and fp32: edge_csr in flux, rw and wsum modes and fused_stage at
-     the box flagship's level-0 shapes, shift in flux and rw modes and
-     shift.fused_stage (with and without a spill operand) at its level-0
-     and level-1 shapes;
+     fp64, fp32 and bf16: edge_csr in flux, rw and wsum modes and
+     fused_stage at the box flagship's level-0 shapes, shift in flux and
+     rw modes and shift.fused_stage (with and without a spill operand) at
+     its level-0 and level-1 shapes; at bf16 every element within one bf16
+     spacing, with the share of bit-equal elements printed;
   5. drives the main path, MGCFDSolver(...).run() on the box flagship
      (304,640 nodes, 4 levels) with accumulate='auto', which takes the
      span kernels ('pallas') there: fp64 through the kernels against fp64
-     through the plain path, then fp32 through the kernels with the
-     launch counts set to 0 just before the run and read just after;
+     through the plain path, then fp32 and bf16 through the kernels with
+     the launch counts set to 0 just before each run and read just after;
   6. drives the CSR kernel path ('window', slice 1's path) on the same box
-     the same way, and the span path unfused (fuse_stage=False) at fp64;
+     the same way, and the span path unfused (fuse_stage=False) at fp64
+     and bf16;
   7. runs the same box undamped (the FVCORR variant) from a perturbed
      state, where every node moves by O(0.1) per cycle, through 'pallas'
-     and 'window': fp64 kernels against fp64 plain, and the fp32 kernel
-     RMS against the fp64 RMS;
+     and 'window': fp64 kernels against fp64 plain, the fp32 kernel RMS
+     against the fp64 RMS, and bf16 through the kernels and through the
+     plain path against fp64 (per channel and per-cycle RMS);
   8. runs the box with every shift plan cut to one span, so that two
      thirds of its edges are spill edges: their flux goes through the
      edge_csr flux kernel into the fused stage's spill operand; fp64
-     against the plain path, launches counted;
+     against the plain path, and bf16, launches counted;
   9. runs a 32^3, 3-level tet hierarchy, which `auto` sends to 'window',
-     through both paths at fp64;
- 10. times each V-cycle and each kernel beside its bound, its plain
-     version and a library call where one computes the same function;
+     through both paths at fp64, and through `auto` at bf16;
+ 10. times each V-cycle (fp32 beside bf16) and each kernel at fp32, fp64
+     and bf16 beside its bound, its plain version and a library call where
+     one computes the same function;
  11. prints the card's name and power limit, one JSON line of kernel
      records, and last the JSON line {"ok": true, "device": {...}}.
 Any failed check raises, and the exit code is then non-zero. Without a
@@ -57,7 +62,8 @@ T0 = time.perf_counter()
 
 # H100 SXM published peaks (NVIDIA data sheet, at the full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
+FP32_FLOP_PER_S = 67e12   # also the rate of the bf16 kernels' float32 math
+FP64_FLOP_PER_S = 34e12
 
 # the Pallas kernels the CUDA kernels replace
 _WINDOW = "mgcfd_tpu/pallas/flux_window.py"
@@ -104,12 +110,31 @@ CAPACITY_TOL = 5e-7
 RMS_DIGITS_TOL = 1e-3
 # relative noise on the far-field state that the undamped box starts from
 PERTURBATION = 0.01
+# bf16 through the kernels and through the plain path against fp64 on the
+# undamped box after 2 cycles: max |bf16 - fp64| per channel over the
+# channel's fp64 scale, max |rho| for the density, max |rho u| (the
+# momentum's magnitude) for each momentum channel, max |rho E| for the
+# energy. The far field has no v or w momentum, so those channels' own
+# maxima are 0.3-0.6% of the momentum, while bf16 rounds the O(|rho u|)
+# terms that form them. The port's plain bf16 path on the CPU, same mesh
+# family, variant and start, cut to 17x16x18 and 34x32x35 (a full-size run
+# is for the card), reached at most 1.66e-2 (density); the kernel paths
+# 1.63e-2. Twice that, rounded up:
+BF16_TOL = 3e-2
+# and each cycle's bf16 RMS within 2% of the fp64 RMS (the same CPU runs:
+# at most 0.71%; bf16 holds 8 significant bits, 0.39% per rounding)
+BF16_RMS_TOL = 2e-2
 # launches per cycle of each path on the 4-level flagship: 6 visits of 3
 # RK stages, 3 restrictions and 3 prolongations
 MG = {"edge_csr.wsum.restrict": 3, "edge_csr.wsum.prolong": 3}
 WANT_MAIN = {"shift.fused_stage": 18, "shift.rw": 18, **MG}
 WANT_WINDOW = {"fused_stage": 18, "edge_csr.rw": 18, **MG}
 WANT_UNFUSED = {"shift.flux": 18, "shift.rw": 18, **MG}
+# kernel-against-plain tolerances by dtype; bf16 is held to one bf16
+# spacing per element instead (mgcfd_tpu_torch/validate/rounding.py)
+TOLS = {"torch.float64": TOL_FP64, "torch.float32": TOL_FP32}
+TAGS = {"torch.float64": "fp64", "torch.float32": "fp32",
+        "torch.bfloat16": "bf16"}
 
 
 def log(msg: str) -> None:
@@ -176,10 +201,20 @@ def random_state(n: int, seed: int, dtype, device):
     return torch.as_tensor(q).to(device=device, dtype=dtype)
 
 
-def check_cases(cases, dt, tol) -> None:
+def check_cases(cases, dt) -> None:
+    """Kernel against plain: within TOLS[dt] of each channel's largest
+    magnitude, or at bf16 within one bf16 spacing of each element."""
     import torch
+    from mgcfd_tpu_torch.validate.rounding import bf16_agreement
     torch.cuda.synchronize()
     for name, got, want in cases:
+        if dt == torch.bfloat16:
+            ratio, same = bf16_agreement(got, want)
+            log(f"check {name:30s} {str(dt):14s} max diff {ratio:.3f} of "
+                f"the allowed one bf16 spacing; bit-equal {same:.4f}")
+            require(ratio <= 1.0, f"{name} {dt}: {ratio:.3f} spacings")
+            continue
+        tol = TOLS[str(dt)]
         err = rel_err(got, want)
         log(f"check {name:30s} {str(dt):14s} max rel err {err:.3e} "
             f"(tol {tol:.0e})")
@@ -187,22 +222,25 @@ def check_cases(cases, dt, tol) -> None:
 
 
 def planted(q):
-    """q with a NaN density and a negative energy planted."""
+    """q with a NaN density, a negative density and a negative energy
+    planted."""
     bad = q.clone()
     n = q.shape[1]
     bad[0, n // 2] = float("nan")
+    bad[0, n // 4] = -1.0
     bad[4, n // 3] = -1.0
     return bad
 
 
-def check_csr_kernels(s64, s32) -> None:
-    """Each CSR kernel against its plain version at level-0 shapes."""
+def check_csr_kernels(solvers) -> None:
+    """Each CSR kernel against its plain version at level-0 shapes, for
+    each solver's dtype."""
     from mgcfd_tpu_torch.kernels import edge_csr
     from mgcfd_tpu_torch.kernels.fused_stage import (fused_stage,
                                                      fused_stage_plain)
     from mgcfd_tpu_torch.solver.solver import t_step_factor
     plain = edge_csr.edge_csr_plain
-    for solver, tol in ((s64, TOL_FP64), (s32, TOL_FP32)):
+    for solver in solvers:
         dt = solver.dtype
         L0, L1 = solver.dmesh.levels[0], solver.dmesh.levels[1]
         n0, n1 = L0.num_nodes, L1.num_nodes
@@ -223,24 +261,24 @@ def check_csr_kernels(s64, s32) -> None:
              plain("wsum", L0.restrict_csr, xf)),
             ("edge_csr.wsum.prolong", edge_csr.prolong(L0.prolong_csr, rc),
              plain("wsum", L0.prolong_csr, rc)),
-            ("fused_stage", k_out, p_out)], dt, tol)
+            ("fused_stage", k_out, p_out)], dt)
         require(int(k_inv) == int(p_inv) == 0,
                 f"fused_stage invalid counts {int(k_inv)} / {int(p_inv)}")
         bad_q = planted(q)
         k_inv = int(fused_stage(L0.csr, L0.nc, bad_q, old, fac)[1])
         p_inv = int(fused_stage_plain(L0.csr, L0.nc, bad_q, old, fac)[1])
-        log(f"check fused_stage invalid count with a planted NaN and "
-            f"E<0: kernel {k_inv}, plain {p_inv}")
+        log(f"check fused_stage invalid count with a planted NaN, rho<0 "
+            f"and E<0: kernel {k_inv}, plain {p_inv}")
         require(k_inv == p_inv > 0, "fused_stage invalid counts differ")
 
 
-def check_shift_kernels(s64, s32) -> None:
+def check_shift_kernels(solvers) -> None:
     """Each span kernel against its plain version at level-0 and level-1
     shapes (level 1: 38,080 nodes, no multiple of the 256-thread block,
-    spans up to 1120 reach across blocks)."""
+    spans up to 1120 reach across blocks), for each solver's dtype."""
     from mgcfd_tpu_torch.kernels import shift
     from mgcfd_tpu_torch.solver.solver import t_step_factor
-    for solver, tol in ((s64, TOL_FP64), (s32, TOL_FP32)):
+    for solver in solvers:
         dt = solver.dtype
         for lev in (0, 1):
             L = solver.dmesh.levels[lev]
@@ -261,7 +299,7 @@ def check_shift_kernels(s64, s32) -> None:
                 (f"shift.rw L{lev}", shift.rw(sh, q),
                  shift.shift_plain("rw", sh, q)),
                 (f"shift.fused_stage L{lev}", k0, p0),
-                (f"shift.fused_stage+spill L{lev}", k1, p1)], dt, tol)
+                (f"shift.fused_stage+spill L{lev}", k1, p1)], dt)
             require(int(k0_inv) == int(p0_inv) == 0,
                     f"shift.fused_stage invalid counts {int(k0_inv)} / "
                     f"{int(p0_inv)}")
@@ -270,7 +308,8 @@ def check_shift_kernels(s64, s32) -> None:
             p_inv = int(shift.shift_fused_stage_plain(sh, L.nc, bad_q, old,
                                                       fac)[1])
             log(f"check shift.fused_stage L{lev} invalid count with a "
-                f"planted NaN and E<0: kernel {k_inv}, plain {p_inv}")
+                f"planted NaN, rho<0 and E<0: kernel {k_inv}, plain "
+                f"{p_inv}")
             require(k_inv == p_inv > 0,
                     "shift.fused_stage invalid counts differ")
 
@@ -353,178 +392,89 @@ def timed_run(solver, what: str):
         start.elapsed_time(end) / 10, v2
 
 
-def main() -> int:
-    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+def refuse_unknown_dtype(lib) -> None:
+    """Every C entry point returns nonzero for a dtype code it does not
+    know (here 7), before it reads any pointer or launches anything."""
+    import ctypes
+    deltas = (ctypes.c_int64 * 1)(1)
+    rcs = {
+        "mgcfd_edge_csr": lib.mgcfd_edge_csr(7, 0, None, None, None, 0,
+                                             None, None, 1, None, 1, None),
+        "mgcfd_fused_stage": lib.mgcfd_fused_stage(
+            7, None, None, None, 0, None, None, None, None, None, None, 1,
+            None),
+        "mgcfd_shift_flux": lib.mgcfd_shift_flux(
+            7, 0, ctypes.addressof(deltas), 1, None, None, None, 1, None),
+        "mgcfd_shift_fused_stage": lib.mgcfd_shift_fused_stage(
+            7, ctypes.addressof(deltas), 1, None, None, None, None, None,
+            None, None, None, 1, None),
+    }
+    log(f"dtype code 7 refused: {rcs}")
+    require(all(rc != 0 for rc in rcs.values()),
+            f"an entry point took an unknown dtype code: {rcs}")
+
+
+def healthy(solver, what: str) -> None:
+    """Every level's variables finite with a positive density, and every
+    RMS read finite."""
+    import numpy as np
+    for lev in range(len(solver.dmesh.levels)):
+        v = solver.variables(lev)
+        require(bool(np.isfinite(v).all()) and bool((v[:, 0] > 0).all()),
+                f"{what}: level {lev} not finite or density not positive")
+    require(all(math.isfinite(r) for r in solver.rms_history),
+            f"{what}: RMS {solver.rms_history}")
+    log(f"{what}: {solver.completed_cycles} cycles, finite, density "
+        f"positive on every level; RMS {solver.rms_history}")
+
+
+def bf16_tracks_fp64(s16, s64, what: str) -> None:
+    """bf16 against fp64 after the same cycles from the same start: each
+    channel's max |difference| over its fp64 scale (BF16_TOL; the
+    momentum channels share the momentum's magnitude as their scale) and
+    each cycle's RMS (BF16_RMS_TOL)."""
+    import numpy as np
+    healthy(s16, what)
+    v16, v64 = s16.variables(0), s64.variables(0)
+    mom = np.sqrt((v64[:, 1:4] ** 2).sum(axis=1)).max()
+    scale = np.array([np.abs(v64[:, 0]).max(), mom, mom, mom,
+                      np.abs(v64[:, 4]).max()])
+    err = np.abs(v16 - v64).max(axis=0) / scale
+    rms = [abs(a / b - 1) for a, b in zip(s16.rms_history,
+                                          s64.rms_history)]
+    log(f"{what} vs fp64, 2 cycles: per-channel max diff over scale "
+        f"{np.array2string(err, precision=3)} (tol {BF16_TOL:.0e}); RMS "
+        f"{s16.rms_history} vs {s64.rms_history}, relative "
+        f"{np.array2string(np.array(rms), precision=4)} (tol "
+        f"{BF16_RMS_TOL:.0e})")
+    require(bool((err <= BF16_TOL).all()), f"{what}: {err} > {BF16_TOL}")
+    require(max(rms) <= BF16_RMS_TOL, f"{what}: RMS {rms}")
+
+
+def kernel_records(s_main, s_win, spill_csr, runs, card_label: str):
+    """Each kernel's record at the level-0 shapes and dtype of s_main
+    ('pallas') and s_win ('window'): device time beside the bound for
+    this dtype's bytes and operations, its plain version's time and a
+    library call's where one PyTorch call computes the same function.
+    runs: path -> (launch counts, per cycle) of this dtype's runs; fp32
+    records keep their names, the others are suffixed with the dtype."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run",
-              file=sys.stderr)
-        return 1
-    here = Path(__file__).resolve().parent
-    if not (here / "mgcfd_tpu_torch" / "__init__.py").is_file():
-        print("chip_smoke: mgcfd_tpu_torch/ is not beside this script; "
-              "run it from a checkout of the repository", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(here))
-    from mgcfd_tpu_torch.bench import FLAGSHIP_SPEC, flagship_mesh
-    from mgcfd_tpu_torch.core.config import SolverConfig
-    from mgcfd_tpu_torch.core.constants import MeshVariant
-    from mgcfd_tpu_torch.kernels import build, edge_csr, shift
+    from mgcfd_tpu_torch.kernels import edge_csr, shift
     from mgcfd_tpu_torch.kernels.fused_stage import (fused_stage,
                                                      fused_stage_plain)
-    from mgcfd_tpu_torch.mesh import generate_unstructured_hierarchy
-    from mgcfd_tpu_torch.prep.shift import build_shift_plan
-    from mgcfd_tpu_torch.solver import MGCFDSolver
-    from mgcfd_tpu_torch.solver import solver as solver_mod
-
-    # no matrix product or convolution runs in fp32 on the paths timed
-    # here; keep any that might at full fp32 all the same
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    name, smi = card()
-    log(f"device: {name} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
-        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-
-    path, secs = build.build()
-    log(f"built {path.name} with one nvcc call in {secs:.1f} s")
-    build.library()
-
-    def solver(mesh, dtype, accumulate="auto", **kw):
-        s = MGCFDSolver(mesh, SolverConfig(dtype=dtype,
-                                           accumulate=accumulate, **kw))
-        log(f"solver ready: {mesh.name} {mesh.variant.name} {dtype} "
-            f"accumulate={accumulate} -> {s.config.accumulate} {kw or ''}")
-        return s
-
-    mesh = flagship_mesh()
-    lv0 = mesh.levels[0]
-    log(f"box flagship: {lv0.num_nodes} nodes, {lv0.num_internal_edges} "
-        f"internal edges, {mesh.num_levels} levels")
-    m64, m32 = solver(mesh, "float64"), solver(mesh, "float32")
-    require(m64.config.accumulate == m32.config.accumulate == "pallas",
-            "auto did not take the span kernels on the box flagship")
-    log("span plans: " + "; ".join(
-        f"L{i} spans {lv.shift.deltas} spill "
-        f"{0 if lv.spill_csr is None else lv.spill_csr.num_entries // 2}"
-        for i, lv in enumerate(m64.dmesh.levels)))
-    w64, w32 = solver(mesh, "float64", "window"), \
-        solver(mesh, "float32", "window")
-
-    check_csr_kernels(w64, w32)
-    check_shift_kernels(m64, m32)
-
-    # --- fp64: both kernel paths and the unfused span path against the
-    # plain path, launches counted ---
-    p64 = solver(mesh, "float64", "segment")
-    p64.run(2)
-    counted_run(m64, 2, "main path ('pallas') fp64", WANT_MAIN)
-    same_as_plain(m64, p64, mesh, "box fp64 'pallas', 2 cycles")
-    counted_run(w64, 2, "window path fp64", WANT_WINDOW)
-    same_as_plain(w64, p64, mesh, "box fp64 'window', 2 cycles")
-    u64 = solver(mesh, "float64", "pallas", fuse_stage=False)
-    counts_unfused, pc_unfused = counted_run(
-        u64, 2, "unfused span path fp64", WANT_UNFUSED)
-    same_as_plain(u64, p64, mesh, "box fp64 'pallas' unfused, 2 cycles")
-
-    # --- fp32, timed, launches counted: the main path, then 'window' ---
-    counts_main, pc_main, main_ms, v2 = timed_run(
-        m32, "main path ('pallas') fp32")
-    full = {k: WANT_MAIN.get(k, 0) for k in counts_main}
-    require(pc_main == full, f"main path launches per cycle {pc_main} "
-            f"!= {full}")
-    cap = capacity_rel(v2, m64.variables(0))
-    log(f"box fp32 'pallas' vs fp64 after 2 cycles: capacity max rel "
-        f"{cap:.3e} (tol {CAPACITY_TOL:.0e}); fp32 RMS {m32.rms_history}")
-    require(cap <= CAPACITY_TOL and all(
-        math.isfinite(r) for r in m32.rms_history), f"fp32 vs fp64 {cap:.3e}")
-    counts_window, pc_window, window_ms, v2 = timed_run(
-        w32, "window path fp32")
-    full = {k: WANT_WINDOW.get(k, 0) for k in counts_window}
-    require(pc_window == full, f"window path launches per cycle "
-            f"{pc_window} != {full}")
-    cap = capacity_rel(v2, w64.variables(0))
-    log(f"box fp32 'window' vs fp64 after 2 cycles: capacity max rel "
-        f"{cap:.3e} (tol {CAPACITY_TOL:.0e}); fp32 RMS {w32.rms_history}")
-    require(cap <= CAPACITY_TOL and all(
-        math.isfinite(r) for r in w32.rms_history), f"fp32 vs fp64 {cap:.3e}")
-
-    # --- the same box undamped, from a perturbed state ---
-    umesh = flagship_mesh(dataclasses.replace(FLAGSHIP_SPEC,
-                                              variant=MeshVariant.FVCORR))
-    ustart = perturbed_state(umesh, seed=11)
-    up64 = solver(umesh, "float64", "segment")
-    up64.load_state(ustart)
-    up64.run(2)
-    moved = float(abs(up64.variables(0) - ustart["variables"][0]).max())
-    log(f"undamped box (FVCORR) from the far field with {PERTURBATION} "
-        f"relative noise, 2 cycles: max change of a variable {moved:.3e}")
-    require(moved > 1e-2, "the undamped box did not move")
-    for mode in ("pallas", "window"):
-        k64, k32 = solver(umesh, "float64", mode), \
-            solver(umesh, "float32", mode)
-        for u in (k64, k32):
-            u.load_state(ustart)
-            u.run(2)
-        same_as_plain(k64, up64, umesh,
-                      f"undamped box fp64 '{mode}', 2 cycles")
-        rms_rel = [abs(a - b) / abs(b)
-                   for a, b in zip(k32.rms_history, k64.rms_history)]
-        log(f"undamped box '{mode}' fp32 kernel RMS {k32.rms_history} vs "
-            f"fp64 {k64.rms_history}: relative differences {rms_rel}")
-        require(all(math.isfinite(r) for r in k32.rms_history)
-                and max(rms_rel) <= RMS_DIGITS_TOL,
-                f"'{mode}' fp32 RMS does not agree with fp64 to 3 digits")
-
-    # --- spill edges: every plan cut to one span ---
-    solver_mod.build_shift_plan = functools.partial(build_shift_plan,
-                                                    max_deltas=1)
-    try:
-        s64 = solver(mesh, "float64", "pallas")
-    finally:
-        solver_mod.build_shift_plan = build_shift_plan
-    log("one-span plans: " + "; ".join(
-        f"L{i} spans {lv.shift.deltas} spill edges "
-        f"{lv.spill_csr.num_entries // 2}"
-        for i, lv in enumerate(s64.dmesh.levels)))
-    L0 = s64.dmesh.levels[0]
-    q = random_state(L0.num_nodes, 21, s64.dtype, L0.volumes.device)
-    check_cases([("edge_csr.flux over spill edges",
-                  edge_csr.flux(L0.spill_csr, q),
-                  edge_csr.edge_csr_plain("flux", L0.spill_csr, q))],
-                s64.dtype, TOL_FP64)
-    counts_spill, pc_spill = counted_run(s64, 2, "spill-forced 'pallas' "
-                                         "fp64")
-    for k in ("shift.fused_stage", "shift.rw", "edge_csr.flux",
-              "edge_csr.rw"):
-        require(counts_spill[k] > 0, f"spill run launched no {k}")
-    require(counts_spill["shift.flux"] == counts_spill["fused_stage"] == 0,
-            "spill run launched a kernel off its path")
-    same_as_plain(s64, p64, mesh, "box fp64 'pallas' with spill, 2 cycles")
-
-    # --- tet hierarchy, fp64: auto takes 'window' there ---
-    tmesh = generate_unstructured_hierarchy(32, 32, 32, 3, seed=0)
-    log(f"tet {tmesh.levels[0].num_nodes} nodes, "
-        f"{tmesh.levels[0].num_internal_edges} edges, 3 levels")
-    kt = solver(tmesh, "float64")
-    require(kt.config.accumulate == "window",
-            "auto did not take the CSR kernels on the tet")
-    pt = solver(tmesh, "float64", "segment")
-    kt.run(2)
-    pt.run(2)
-    same_as_plain(kt, pt, tmesh, "tet fp64, 2 cycles")
-
-    # --- times at the fp32 level-0 shapes ---
-    M0 = m32.dmesh.levels[0]
-    W0, W1 = w32.dmesh.levels[0], w32.dmesh.levels[1]
-    q = m32.state["variables"][0]
+    dt = s_main.dtype
+    tag = TAGS[str(dt)]
+    M0 = s_main.dmesh.levels[0]
+    W0, W1 = s_win.dmesh.levels[0], s_win.dmesh.levels[1]
+    q = s_main.state["variables"][0]
     old = q + 1e-6 * q
     fac = torch.full_like(M0.volumes, 1e-3)
-    res1 = m32.state["residuals"][1]
+    res1 = s_main.state["residuals"][1]
     sz = q.element_size()
     n0, n1 = M0.num_nodes, W1.num_nodes
     sh = M0.shift
     D = len(sh.deltas)
+    flops = FP64_FLOP_PER_S if dt == torch.float64 else FP32_FLOP_PER_S
 
     def csr_bytes(csr, wrows):
         return 4 * (csr.num_rows + 1) + 4 * csr.num_entries \
@@ -539,8 +489,8 @@ def main() -> int:
     rc_t = res1.T.contiguous()
     sp_r, sp_p = sparse(W0.restrict_csr), sparse(W0.prolong_csr)
     plain = edge_csr.edge_csr_plain
-    # the spill edges of the one-span level 0, at fp32
-    spill32 = dataclasses.replace(L0.spill_csr, w=L0.spill_csr.w.float())
+    # the spill edges of the one-span level 0, in this dtype
+    spill = dataclasses.replace(spill_csr, w=spill_csr.w.to(dt))
     # name, kernel family, path whose run gives the launches, kernel fn,
     # plain fn, library fn, bytes, operations
     rows = [
@@ -580,42 +530,243 @@ def main() -> int:
          None, csr_bytes(W0.csr, 3) + sz * n0 * 10,
          RW_OPS_PER_ENTRY * W0.csr.num_entries),
         ("edge_csr.flux", "edge_csr", "spill",
-         lambda: edge_csr.flux(spill32, q),
-         lambda: plain("flux", spill32, q), None,
-         csr_bytes(spill32, 4) + sz * n0 * 10,
-         FLUX_OPS_PER_ENTRY * spill32.num_entries
-         + FLUX_OPS_PER_ROW * n0),
+         lambda: edge_csr.flux(spill, q),
+         lambda: plain("flux", spill, q), None,
+         csr_bytes(spill, 4) + sz * n0 * 10,
+         FLUX_OPS_PER_ENTRY * spill.num_entries + FLUX_OPS_PER_ROW * n0),
     ]
-    runs = {"main": (counts_main, pc_main),
-            "window": (counts_window, pc_window),
-            "unfused": (counts_unfused, pc_unfused),
-            "spill": (counts_spill, pc_spill)}
     records = []
     for (rname, family, run, kfn, pfn, lfn, nbytes, nops) in rows:
         counts, pc = runs[run]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / FP32_FLOP_PER_S * 1e3
-        require(counts[rname] > 0, f"{rname}: no launch in the {run} run")
+        t_ops = nops / flops * 1e3
+        require(counts[rname] > 0, f"{rname}: no launch in the {tag} "
+                f"{run} run")
+        lib_ms, lib_note = None, "-"
+        if lfn is not None:
+            try:
+                lib_ms = device_ms(lfn)
+                lib_note = f"{lib_ms * 1e3:.1f} us"
+            except RuntimeError as e:   # no such library call for dt
+                lib_note = f"none ({str(e).splitlines()[0][:60]})"
         rec = {
-            "name": rname, "route": "cuda", "source": SOURCES[family],
+            "name": rname if tag == "fp32" else f"{rname}.{tag}",
+            "route": "cuda", "source": SOURCES[family],
             "replaces": REPLACES[family], "launches": counts[rname],
-            "max_abs_err": float((kfn() - pfn()).abs().max()),
+            "max_abs_err": float((kfn().double() - pfn().double()).abs()
+                                 .max()),
             "ms": device_ms(kfn), "plain_ms": device_ms(pfn),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None if lfn is None else device_ms(lfn),
+            "library_ms": lib_ms, "dtype": str(dt).split(".")[-1],
             "path": run, "launches_per_cycle": pc[rname],
         }
         records.append(rec)
-        lib = "-" if lfn is None else f"{rec['library_ms'] * 1e3:.1f} us"
-        log(f"time {rname:24s} {rec['ms'] * 1e3:9.1f} us  plain "
+        log(f"time {rec['name']:29s} {rec['ms'] * 1e3:9.1f} us  plain "
             f"{rec['plain_ms'] * 1e3:9.1f} us  bound "
             f"{rec['bound_ms'] * 1e3:7.1f} us ({rec['bound_by']}, "
-            f"{nbytes / 1e6:.1f} MB)  library {lib}  launches per cycle "
-            f"{pc[rname]:g} ({run} run)  [{name}, {smi}]")
-    log(f"V-cycle, box flagship fp32, main path ('pallas', auto): "
-        f"{main_ms:.3f} ms per cycle; 'window': {window_ms:.3f} ms per "
-        f"cycle (CUDA events over 10 cycles after 2) [{name}, {smi}]")
+            f"{nbytes / 1e6:.1f} MB)  library {lib_note}  launches per "
+            f"cycle {pc[rname]:g} ({tag} {run} run)  [{card_label}]")
+    return records
+
+
+def main() -> int:
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run",
+              file=sys.stderr)
+        return 1
+    here = Path(__file__).resolve().parent
+    if not (here / "mgcfd_tpu_torch" / "__init__.py").is_file():
+        print("chip_smoke: mgcfd_tpu_torch/ is not beside this script; "
+              "run it from a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(here))
+    from mgcfd_tpu_torch.bench import FLAGSHIP_SPEC, flagship_mesh
+    from mgcfd_tpu_torch.core.config import SolverConfig
+    from mgcfd_tpu_torch.core.constants import MeshVariant
+    from mgcfd_tpu_torch.kernels import build, edge_csr
+    from mgcfd_tpu_torch.mesh import generate_unstructured_hierarchy
+    from mgcfd_tpu_torch.prep.shift import build_shift_plan
+    from mgcfd_tpu_torch.solver import MGCFDSolver
+    from mgcfd_tpu_torch.solver import solver as solver_mod
+
+    # no matrix product or convolution runs in fp32 on the paths timed
+    # here; keep any that might at full fp32 all the same
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    name, smi = card()
+    log(f"device: {name} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    path, secs = build.build()
+    log(f"built {path.name} with one nvcc call in {secs:.1f} s")
+    refuse_unknown_dtype(build.library())
+
+    def solver(mesh, dtype, accumulate="auto", **kw):
+        s = MGCFDSolver(mesh, SolverConfig(dtype=dtype,
+                                           accumulate=accumulate, **kw))
+        log(f"solver ready: {mesh.name} {mesh.variant.name} {dtype} "
+            f"accumulate={accumulate} -> {s.config.accumulate} {kw or ''}")
+        return s
+
+    mesh = flagship_mesh()
+    lv0 = mesh.levels[0]
+    log(f"box flagship: {lv0.num_nodes} nodes, {lv0.num_internal_edges} "
+        f"internal edges, {mesh.num_levels} levels")
+    m64, m32, m16 = (solver(mesh, dt) for dt in
+                     ("float64", "float32", "bfloat16"))
+    require(m64.config.accumulate == m32.config.accumulate
+            == m16.config.accumulate == "pallas",
+            "auto did not take the span kernels on the box flagship")
+    log("span plans: " + "; ".join(
+        f"L{i} spans {lv.shift.deltas} spill "
+        f"{0 if lv.spill_csr is None else lv.spill_csr.num_entries // 2}"
+        for i, lv in enumerate(m64.dmesh.levels)))
+    w64, w32, w16 = (solver(mesh, dt, "window") for dt in
+                     ("float64", "float32", "bfloat16"))
+
+    check_csr_kernels((w64, w32, w16))
+    check_shift_kernels((m64, m32, m16))
+
+    # --- fp64: both kernel paths and the unfused span path against the
+    # plain path, launches counted ---
+    p64 = solver(mesh, "float64", "segment")
+    p64.run(2)
+    runs64 = {"main": counted_run(m64, 2, "main path ('pallas') fp64",
+                                  WANT_MAIN)}
+    same_as_plain(m64, p64, mesh, "box fp64 'pallas', 2 cycles")
+    runs64["window"] = counted_run(w64, 2, "window path fp64", WANT_WINDOW)
+    same_as_plain(w64, p64, mesh, "box fp64 'window', 2 cycles")
+    u64 = solver(mesh, "float64", "pallas", fuse_stage=False)
+    runs64["unfused"] = counted_run(u64, 2, "unfused span path fp64",
+                                    WANT_UNFUSED)
+    same_as_plain(u64, p64, mesh, "box fp64 'pallas' unfused, 2 cycles")
+
+    # --- fp32 and bf16, timed, launches counted: the main path, then
+    # 'window'; bf16 launches as many kernels per cycle as fp32 ---
+    cycle_ms = {}
+    runs32, runs16 = {}, {}
+    for s_main, s_win, runs in ((m32, w32, runs32), (m16, w16, runs16)):
+        tag = TAGS[str(s_main.dtype)]
+        for path, s_, want in (("main", s_main, WANT_MAIN),
+                               ("window", s_win, WANT_WINDOW)):
+            counts, pc, ms, v2 = timed_run(s_, f"{path} path "
+                                           f"('{s_.config.accumulate}') "
+                                           f"{tag}")
+            full = {k: want.get(k, 0) for k in counts}
+            require(pc == full, f"{path} {tag} launches per cycle {pc} "
+                    f"!= {full}")
+            runs[path] = (counts, pc)
+            cycle_ms[(s_.config.accumulate, tag)] = ms
+            healthy(s_, f"box {tag} '{s_.config.accumulate}'")
+            if tag == "fp32":
+                ref = m64 if path == "main" else w64
+                cap = capacity_rel(v2, ref.variables(0))
+                log(f"box fp32 '{s_.config.accumulate}' vs fp64 after 2 "
+                    f"cycles: capacity max rel {cap:.3e} (tol "
+                    f"{CAPACITY_TOL:.0e}); fp32 RMS {s_.rms_history}")
+                require(cap <= CAPACITY_TOL, f"fp32 vs fp64 {cap:.3e}")
+    u16 = solver(mesh, "bfloat16", "pallas", fuse_stage=False)
+    runs16["unfused"] = counted_run(u16, 2, "unfused span path bf16",
+                                    WANT_UNFUSED)
+    healthy(u16, "box bf16 'pallas' unfused")
+
+    # --- the same box undamped, from a perturbed state ---
+    umesh = flagship_mesh(dataclasses.replace(FLAGSHIP_SPEC,
+                                              variant=MeshVariant.FVCORR))
+    ustart = perturbed_state(umesh, seed=11)
+    up64 = solver(umesh, "float64", "segment")
+    up16 = solver(umesh, "bfloat16", "segment")
+    for u in (up64, up16):
+        u.load_state(ustart)
+        u.run(2)
+    moved = float(abs(up64.variables(0) - ustart["variables"][0]).max())
+    log(f"undamped box (FVCORR) from the far field with {PERTURBATION} "
+        f"relative noise, 2 cycles: max change of a variable {moved:.3e}")
+    require(moved > 1e-2, "the undamped box did not move")
+    bf16_tracks_fp64(up16, up64, "undamped box bf16 plain ('segment')")
+    for mode in ("pallas", "window"):
+        k64, k32, k16 = (solver(umesh, dt, mode) for dt in
+                         ("float64", "float32", "bfloat16"))
+        for u in (k64, k32, k16):
+            u.load_state(ustart)
+            u.run(2)
+        same_as_plain(k64, up64, umesh,
+                      f"undamped box fp64 '{mode}', 2 cycles")
+        rms_rel = [abs(a - b) / abs(b)
+                   for a, b in zip(k32.rms_history, k64.rms_history)]
+        log(f"undamped box '{mode}' fp32 kernel RMS {k32.rms_history} vs "
+            f"fp64 {k64.rms_history}: relative differences {rms_rel}")
+        require(all(math.isfinite(r) for r in k32.rms_history)
+                and max(rms_rel) <= RMS_DIGITS_TOL,
+                f"'{mode}' fp32 RMS does not agree with fp64 to 3 digits")
+        bf16_tracks_fp64(k16, up64, f"undamped box bf16 '{mode}'")
+
+    # --- spill edges: every plan cut to one span ---
+    solver_mod.build_shift_plan = functools.partial(build_shift_plan,
+                                                    max_deltas=1)
+    try:
+        s64 = solver(mesh, "float64", "pallas")
+        s16 = solver(mesh, "bfloat16", "pallas")
+    finally:
+        solver_mod.build_shift_plan = build_shift_plan
+    log("one-span plans: " + "; ".join(
+        f"L{i} spans {lv.shift.deltas} spill edges "
+        f"{lv.spill_csr.num_entries // 2}"
+        for i, lv in enumerate(s64.dmesh.levels)))
+    L0 = s64.dmesh.levels[0]
+    for sp in (s64, s16):
+        q = random_state(L0.num_nodes, 21, sp.dtype, L0.volumes.device)
+        csr = sp.dmesh.levels[0].spill_csr
+        check_cases([("edge_csr.flux over spill edges",
+                      edge_csr.flux(csr, q),
+                      edge_csr.edge_csr_plain("flux", csr, q))], sp.dtype)
+    runs64["spill"] = counted_run(s64, 2, "spill-forced 'pallas' fp64")
+    runs16["spill"] = counted_run(s16, 2, "spill-forced 'pallas' bf16")
+    for runs in (runs64, runs16):
+        counts_spill = runs["spill"][0]
+        for k in ("shift.fused_stage", "shift.rw", "edge_csr.flux",
+                  "edge_csr.rw"):
+            require(counts_spill[k] > 0, f"spill run launched no {k}")
+        require(counts_spill["shift.flux"] == counts_spill["fused_stage"]
+                == 0, "spill run launched a kernel off its path")
+    same_as_plain(s64, p64, mesh, "box fp64 'pallas' with spill, 2 cycles")
+    healthy(s16, "box bf16 'pallas' with spill")
+    # fp32 has no runs of its own off the main and window paths: its
+    # records read the fp64 runs' launches for those
+    runs32["unfused"], runs32["spill"] = runs64["unfused"], runs64["spill"]
+
+    # --- tet hierarchy: auto takes 'window' there, fp64 and bf16 ---
+    tmesh = generate_unstructured_hierarchy(32, 32, 32, 3, seed=0)
+    log(f"tet {tmesh.levels[0].num_nodes} nodes, "
+        f"{tmesh.levels[0].num_internal_edges} edges, 3 levels")
+    kt, kt16 = solver(tmesh, "float64"), solver(tmesh, "bfloat16")
+    require(kt.config.accumulate == kt16.config.accumulate == "window",
+            "auto did not take the CSR kernels on the tet")
+    pt = solver(tmesh, "float64", "segment")
+    kt.run(2)
+    pt.run(2)
+    same_as_plain(kt, pt, tmesh, "tet fp64, 2 cycles")
+    counted_run(kt16, 2, "tet bf16 ('window', auto)",
+                {"fused_stage": 12, "edge_csr.rw": 12,
+                 "edge_csr.wsum.restrict": 2, "edge_csr.wsum.prolong": 2})
+    healthy(kt16, "tet bf16 'window'")
+
+    # --- times at the level-0 shapes, for each dtype ---
+    records = []
+    for s_main, s_win, runs in ((m32, w32, runs32), (m64, w64, runs64),
+                                (m16, w16, runs16)):
+        records += kernel_records(s_main, s_win, L0.spill_csr, runs,
+                                  f"{name}, {smi}")
+    log(f"V-cycle, box flagship, main path ('pallas', auto): fp32 "
+        f"{cycle_ms[('pallas', 'fp32')]:.3f} ms, bf16 "
+        f"{cycle_ms[('pallas', 'bf16')]:.3f} ms per cycle; 'window': fp32 "
+        f"{cycle_ms[('window', 'fp32')]:.3f} ms, bf16 "
+        f"{cycle_ms[('window', 'bf16')]:.3f} ms per cycle (CUDA events "
+        f"over 10 cycles after 2) [{name}, {smi}]")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -1,8 +1,8 @@
 """Where one V-cycle's time goes on the card: torch.profiler over a few
 cycles of MGCFDSolver on the box flagship.
 
-    python -m mgcfd_tpu_torch.bench.profile_cycle [--dtype float32]
-        [--accumulate auto] [--cycles 5]
+    python -m mgcfd_tpu_torch.bench.profile_cycle
+        [--dtype float32|float64|bfloat16] [--accumulate auto] [--cycles 5]
 
 --accumulate auto (the default) profiles the path a user's run takes on
 the box ('pallas'); --accumulate window profiles the CSR kernels there.
@@ -19,13 +19,12 @@ import argparse
 import sys
 import time
 
-from ..core.config import ACCUMULATE_MODES
+from ..core.config import ACCUMULATE_MODES, DTYPES
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--dtype", default="float32",
-                   choices=["float32", "float64"])
+    p.add_argument("--dtype", default="float32", choices=DTYPES)
     p.add_argument("--accumulate", default="auto",
                    choices=ACCUMULATE_MODES)
     p.add_argument("--cycles", type=int, default=5)

@@ -12,7 +12,7 @@ import argparse
 import sys
 import time
 
-from ..core.config import ACCUMULATE_MODES, SolverConfig
+from ..core.config import ACCUMULATE_MODES, DTYPES, SolverConfig
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -23,7 +23,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", required=True, metavar="NX,NY,NZ,L",
                    help="run on a generated box hierarchy")
     p.add_argument("-g", "--num-cycles", type=int, default=None)
-    p.add_argument("--dtype", default=None, choices=["float32", "float64"])
+    p.add_argument("--dtype", default=None, choices=DTYPES)
     p.add_argument("--accumulate", default=None, choices=ACCUMULATE_MODES,
                    help="'auto' (default): on CUDA the span kernels "
                         "('pallas') on box-class meshes, else the CSR "
@@ -43,7 +43,7 @@ def main(argv=None) -> int:
     args, rest = parser.parse_known_args(argv)
     if rest:
         parser.error(f"not ported yet: {' '.join(rest)} (ROADMAP.md "
-                     "queue 1, item 11 brings the full CLI)")
+                     "queue 1, item 8 brings the full CLI)")
     cfg = SolverConfig()
     if args.num_cycles is not None:
         cfg.num_cycles = args.num_cycles

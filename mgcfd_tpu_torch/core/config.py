@@ -11,44 +11,47 @@ from __future__ import annotations
 import dataclasses
 
 ACCUMULATE_MODES = ("auto", "segment", "window", "pallas", "shift")
+# bfloat16 is a storage format: the kernels load bf16, compute in f32 and
+# round once on store; the plain paths run op by op in bf16, as XLA does
+DTYPES = ("float32", "float64", "bfloat16")
 
 # accumulate values of the JAX package that the port does not have yet
 _ACCUMULATE_ROADMAP = {
-    "ell": "ROADMAP.md queue 1, item 7 (prep/incidence.py)",
+    "ell": "ROADMAP.md queue 1, item 4 (prep/incidence.py)",
     "scatter": "ROADMAP.md queue 1, item 4 (accumulate_flux scatter mode)",
 }
 
 # field -> ROADMAP item; the field must keep its default until then
 _NOT_PORTED = {
-    "input_file": "queue 1, item 3 (mesh/io_dat.py)",
-    "input_file_directory": "queue 1, item 3 (mesh/io_dat.py)",
-    "output_file_prefix": "queue 1, item 9 (validate/golden.py dumps)",
-    "mesh_duplicate_count": "queue 1, item 3 (mesh/duplicate.py)",
-    "validate_result": "queue 1, item 9 (validate/)",
-    "output_variables": "queue 1, item 9 (validate/golden.py dumps)",
-    "output_fluxes": "queue 1, item 9 (validate/golden.py dumps)",
-    "output_step_factors": "queue 1, item 9 (validate/golden.py dumps)",
-    "output_volumes": "queue 1, item 9 (validate/golden.py dumps)",
-    "output_edge_fluxes": "queue 1, item 9 (validate/golden.py dumps)",
-    "flux_cripple": "queue 1, item 5 (crippled flux twin)",
-    "flux_precompute_edge_weights": "queue 1, item 5 (segment-path |w|)",
-    "checkpoint_dir": "queue 1, item 9 (utils/checkpoint.py)",
-    "checkpoint_every": "queue 1, item 9 (utils/checkpoint.py)",
-    "resume": "queue 1, item 9 (utils/checkpoint.py)",
-    "event_config_file": "queue 1, item 10 (monitor/events.py)",
-    "num_partitions": "queue 1, item 12 (parallel/)",
-    "partition_2d": "queue 1, item 12 (parallel/)",
-    "shard_levels": "queue 1, item 12 (parallel/)",
-    "monitor_mode": "queue 1, item 10 (monitor/)",
+    "input_file": "queue 1, item 5 (mesh/io_dat.py)",
+    "input_file_directory": "queue 1, item 5 (mesh/io_dat.py)",
+    "output_file_prefix": "queue 1, item 6 (validate/golden.py dumps)",
+    "mesh_duplicate_count": "queue 1, item 5 (mesh/duplicate.py)",
+    "validate_result": "queue 1, item 6 (validate/)",
+    "output_variables": "queue 1, item 6 (validate/golden.py dumps)",
+    "output_fluxes": "queue 1, item 6 (validate/golden.py dumps)",
+    "output_step_factors": "queue 1, item 6 (validate/golden.py dumps)",
+    "output_volumes": "queue 1, item 6 (validate/golden.py dumps)",
+    "output_edge_fluxes": "queue 1, item 6 (validate/golden.py dumps)",
+    "flux_cripple": "queue 1, item 4 (crippled flux twin)",
+    "flux_precompute_edge_weights": "queue 1, item 4 (segment-path |w|)",
+    "checkpoint_dir": "queue 1, item 6 (utils/checkpoint.py)",
+    "checkpoint_every": "queue 1, item 6 (utils/checkpoint.py)",
+    "resume": "queue 1, item 6 (utils/checkpoint.py)",
+    "event_config_file": "queue 1, item 7 (monitor/events.py)",
+    "num_partitions": "queue 1, item 9 (parallel/)",
+    "partition_2d": "queue 1, item 9 (parallel/)",
+    "shard_levels": "queue 1, item 9 (parallel/)",
+    "monitor_mode": "queue 1, item 7 (monitor/)",
     "flux_fission": "queue 1, item 4 (the fission formulation of "
                     "accumulate_flux)",
-    "flux_reuse_flux": "queue 1, item 10 (monitor/csvout.py flux options)",
-    "flux_reuse_div": "queue 1, item 10 (monitor/csvout.py flux options)",
-    "flux_reuse_factor": "queue 1, item 10 (monitor/csvout.py flux "
+    "flux_reuse_flux": "queue 1, item 7 (monitor/csvout.py flux options)",
+    "flux_reuse_div": "queue 1, item 7 (monitor/csvout.py flux options)",
+    "flux_reuse_factor": "queue 1, item 7 (monitor/csvout.py flux "
                          "options)",
     "mg_gather": "queue 1, item 4 (the scatter formulation of the MG "
                  "transfers)",
-    "plan_cache_dir": "queue 1, item 7 (prep/window.py cached_plan)",
+    "plan_cache_dir": "queue 1, item 4 (prep/window.py cached_plan)",
 }
 
 # field -> why it has no counterpart; it must keep its default
@@ -89,7 +92,7 @@ class SolverConfig:
     resume: bool = False
     event_config_file: str = ""
 
-    dtype: str = "float32"            # float32 | float64
+    dtype: str = "float32"            # one of DTYPES
     # 'auto' resolves at solver build: on CUDA 'pallas' when every
     # level's shift plan covers >= 0.995 of its edges (box-class meshes),
     # else 'window'; 'segment' on the CPU.
@@ -130,10 +133,10 @@ class SolverConfig:
                 f"{_ACCUMULATE_ROADMAP[self.accumulate]}")
         if self.accumulate not in ACCUMULATE_MODES:
             raise ValueError(f"unknown accumulate mode {self.accumulate!r}")
-        if self.dtype not in ("float32", "float64"):
+        if self.dtype not in DTYPES:
             raise NotImplementedError(
-                f"dtype={self.dtype!r} is not ported yet (float32 and "
-                "float64 are)")
+                f"dtype={self.dtype!r} is not ported (the port runs "
+                f"{', '.join(DTYPES)})")
         for f in dataclasses.fields(SolverConfig):
             if f.name in _NOT_PORTED and \
                     getattr(self, f.name) != f.default:
@@ -148,5 +151,5 @@ class SolverConfig:
         if self.fuse_window_stage is False:
             raise NotImplementedError(
                 "SolverConfig.fuse_window_stage=False (the unfused window "
-                "stage) is not ported yet: ROADMAP.md queue 1, items 10 "
-                "and 12 (the instrumented and sharded solvers run it)")
+                "stage) is not ported yet: ROADMAP.md queue 1, items 7 "
+                "and 9 (the instrumented and sharded solvers run it)")

@@ -1,4 +1,4 @@
-// fused_stage<T>: one whole RK stage, one thread per node.
+// fused_stage<S>: one whole RK stage, one thread per node.
 //
 // Replaces the Pallas kernel
 // mgcfd_tpu/pallas/flux_window.py::_window_fused_kernel (:359): per owner
@@ -17,66 +17,72 @@
 // What the design does about it: one pass replaces the flux, boundary,
 // time-step and validity passes (three extra state round trips); the state
 // gathers hit the 50 MB L2.
+// At bfloat16 (the bf16 branch, :382-413) every operand but row_ptr and
+// col halves (about 39 MB); old + fac * flux is formed in float32 from the
+// widened operands, rounded once on store, and counted before rounding.
 #include "csr_common.cuh"
 
 namespace mgcfd {
 
-template <typename T>
+template <typename S>
 __global__ void __launch_bounds__(kThreads)
     fused_stage_kernel(const int* __restrict__ row_ptr,
-                       const int* __restrict__ col, const T* __restrict__ w,
-                       int64_t n_half, const T* __restrict__ q,
-                       const T* __restrict__ old, const T* __restrict__ fac,
-                       const T* __restrict__ nc, T* __restrict__ out,
+                       const int* __restrict__ col, const S* __restrict__ w,
+                       int64_t n_half, const S* __restrict__ q,
+                       const S* __restrict__ old, const S* __restrict__ fac,
+                       const S* __restrict__ nc, S* __restrict__ out,
                        int* __restrict__ invalid, int64_t n) {
+  using C = compute_t<S>;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   int bad = 0;
   if (i < n) {
-    const State8<T> qo = complete8(q, n, i);
-    T acc[5], bw[5];
+    const State8<C> qo = complete8(q, n, i);
+    C acc[5], bw[5];
     flux_row(row_ptr, col, w, n_half, q, n, i, qo, acc);
     bw_flux(qo, nc, n, i, bw);
-    const T f = fac[i];
+    const C f = to_compute(fac[i]);
     for (int c = 0; c < 5; ++c) {
-      const T a = acc[c] + bw[c];
-      const T qn = old[c * n + i] + f * a;
-      out[c * n + i] = qn;
+      const C a = acc[c] + bw[c];
+      const C qn = to_compute(old[c * n + i]) + f * a;
+      out[c * n + i] = to_storage<S>(qn);
       bad += invalid_value(c, qn);
     }
   }
   add_block_count(bad, invalid);
 }
 
-template <typename T>
+template <typename S>
 int launch_fused(const void* row_ptr, const void* col, const void* w,
                  int64_t n_half, const void* q, const void* old,
                  const void* fac, const void* nc, void* out, void* invalid,
                  int64_t n, cudaStream_t stream) {
-  fused_stage_kernel<T><<<blocks_for(n), kThreads, 0, stream>>>(
+  fused_stage_kernel<S><<<blocks_for(n), kThreads, 0, stream>>>(
       static_cast<const int*>(row_ptr), static_cast<const int*>(col),
-      static_cast<const T*>(w), n_half, static_cast<const T*>(q),
-      static_cast<const T*>(old), static_cast<const T*>(fac),
-      static_cast<const T*>(nc), static_cast<T*>(out),
+      static_cast<const S*>(w), n_half, static_cast<const S*>(q),
+      static_cast<const S*>(old), static_cast<const S*>(fac),
+      static_cast<const S*>(nc), static_cast<S*>(out),
       static_cast<int*>(invalid), n);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace mgcfd
 
-// Returns the cudaError_t of the launch (0 = success). q, old, out (5, n);
-// fac (n); nc (11, n); w (4, n_half); invalid: one int32, zeroed by the
-// caller, to which the kernel adds.
-extern "C" int mgcfd_fused_stage(int64_t is_double, const void* row_ptr,
+// Returns the cudaError_t of the launch (0 = success), or
+// cudaErrorInvalidValue for an unknown dtype code. dtype: 0 float32, 1
+// float64, 2 bfloat16 (the storage type of w, q, old, fac, nc and out).
+// q, old, out (5, n); fac (n); nc (11, n); w (4, n_half); invalid: one
+// int32, zeroed by the caller, to which the kernel adds.
+extern "C" int mgcfd_fused_stage(int64_t dtype, const void* row_ptr,
                                  const void* col, const void* w,
                                  int64_t n_half, const void* q,
                                  const void* old, const void* fac,
                                  const void* nc, void* out, void* invalid,
                                  int64_t n, void* stream) {
-  if (n == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  return is_double
-             ? mgcfd::launch_fused<double>(row_ptr, col, w, n_half, q, old,
-                                           fac, nc, out, invalid, n, s)
-             : mgcfd::launch_fused<float>(row_ptr, col, w, n_half, q, old,
-                                          fac, nc, out, invalid, n, s);
+  return mgcfd::dispatch_dtype(dtype, [&](auto tag) {
+    using S = decltype(tag);
+    if (n == 0) return 0;
+    return mgcfd::launch_fused<S>(row_ptr, col, w, n_half, q, old, fac, nc,
+                                  out, invalid, n, s);
+  });
 }

@@ -30,28 +30,29 @@ struct Spans {
   int64_t count;
 };
 
-template <typename T>
-__device__ __forceinline__ State8<T> node_or_quiescent(
-    const T* __restrict__ q, int64_t n, int64_t j) {
+template <typename S, typename C = compute_t<S>>
+__device__ __forceinline__ State8<C> node_or_quiescent(
+    const S* __restrict__ q, int64_t n, int64_t j) {
   if (j >= 0 && j < n) return complete8(q, n, j);
-  return complete8(T(1), T(0), T(0), T(0), T(1));
+  return complete8<C>(C(1), C(0), C(0), C(0), C(1));
 }
 
 // val_d(j) into v; w is span d's (4, n) weight block, zero for j < 0.
 // Flux mode: flux_shift.py::_edge_val_ch (:80), the op order of
 // csr_common.cuh's flux_math. Rw mode: the indirect_rw twin
 // _edge_val_rw (:108), (q_a + q_b) + ((wx + wy) + wz) per channel.
-template <typename T, bool RW>
+// In the compute type T; w is stored as S.
+template <typename S, bool RW, typename T = compute_t<S>>
 __device__ __forceinline__ void edge_value(const State8<T>& a,
                                            const State8<T>& b,
-                                           const T* __restrict__ w,
+                                           const S* __restrict__ w,
                                            int64_t n, int64_t j, T v[5]) {
   T wx = T(0), wy = T(0), wz = T(0), wt = T(0);
   if (j >= 0) {
-    wx = w[j];
-    wy = w[n + j];
-    wz = w[2 * n + j];
-    wt = w[3 * n + j];
+    wx = to_compute(w[j]);
+    wy = to_compute(w[n + j]);
+    wz = to_compute(w[2 * n + j]);
+    wt = to_compute(w[3 * n + j]);
   }
   if constexpr (RW) {
     const T e = (wx + wy) + wz;
@@ -65,21 +66,22 @@ __device__ __forceinline__ void edge_value(const State8<T>& a,
   }
 }
 
-// acc = node i's internal flux (or its rw twin) over every span
-template <typename T, bool RW>
+// acc = node i's internal flux (or its rw twin) over every span, in the
+// compute type T (float32 at bfloat16 until the caller's one store)
+template <typename S, bool RW, typename T = compute_t<S>>
 __device__ __forceinline__ void span_sum(const Spans& sp,
-                                         const T* __restrict__ w,
-                                         const T* __restrict__ q, int64_t n,
+                                         const S* __restrict__ w,
+                                         const S* __restrict__ q, int64_t n,
                                          int64_t i, const State8<T>& qi,
                                          T acc[5]) {
   for (int c = 0; c < 5; ++c) acc[c] = T(0);
   for (int64_t k = 0; k < sp.count; ++k) {
     const int64_t d = sp.d[k];
-    const T* wk = w + k * 4 * n;
+    const S* wk = w + k * 4 * n;
     T v[5];
-    edge_value<T, RW>(qi, node_or_quiescent(q, n, i + d), wk, n, i, v);
+    edge_value<S, RW>(qi, node_or_quiescent(q, n, i + d), wk, n, i, v);
     for (int c = 0; c < 5; ++c) acc[c] += v[c];
-    edge_value<T, RW>(node_or_quiescent(q, n, i - d), qi, wk, n, i - d, v);
+    edge_value<S, RW>(node_or_quiescent(q, n, i - d), qi, wk, n, i - d, v);
     for (int c = 0; c < 5; ++c) acc[c] -= v[c];
   }
 }

@@ -1,4 +1,4 @@
-// shift_flux<T, RW>: the span-decomposed internal-edge flux of box-class
+// shift_flux<S, RW>: the span-decomposed internal-edge flux of box-class
 // meshes (or its indirect_rw twin), one thread per node.
 //
 // Replaces the Pallas kernel mgcfd_tpu/pallas/flux_shift.py::_kernel
@@ -19,51 +19,59 @@
 // 6 MB state stays in the 50 MB L2 across the three reads; weights stream
 // once each from both endpoints' threads. Each edge value is computed
 // twice (about 2 x 80 operations per edge), far below the card's rate.
+// At bfloat16 (the bf16 branch, :163-201) the state and weights halve
+// (about 13 MB); the span sums stay in float32 until the one rounded
+// store.
 #include "shift_common.cuh"
 
 namespace mgcfd {
 
-template <typename T, bool RW>
+template <typename S, bool RW>
 __global__ void __launch_bounds__(kThreads)
-    shift_flux_kernel(Spans sp, const T* __restrict__ w,
-                      const T* __restrict__ q, T* __restrict__ out,
+    shift_flux_kernel(Spans sp, const S* __restrict__ w,
+                      const S* __restrict__ q, S* __restrict__ out,
                       int64_t n) {
+  using C = compute_t<S>;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
-  T acc[5];
-  span_sum<T, RW>(sp, w, q, n, i, complete8(q, n, i), acc);
-  for (int c = 0; c < 5; ++c) out[c * n + i] = acc[c];
+  C acc[5];
+  span_sum<S, RW>(sp, w, q, n, i, complete8(q, n, i), acc);
+  for (int c = 0; c < 5; ++c) out[c * n + i] = to_storage<S>(acc[c]);
 }
 
-template <typename T>
+template <typename S>
 int launch_shift(int64_t rw, const Spans& sp, const void* w, const void* q,
                  void* out, int64_t n, cudaStream_t stream) {
-  const auto* wt = static_cast<const T*>(w);
-  const auto* x = static_cast<const T*>(q);
-  auto* o = static_cast<T*>(out);
+  const auto* wt = static_cast<const S*>(w);
+  const auto* x = static_cast<const S*>(q);
+  auto* o = static_cast<S*>(out);
   if (rw)
-    shift_flux_kernel<T, true><<<blocks_for(n), kThreads, 0, stream>>>(
+    shift_flux_kernel<S, true><<<blocks_for(n), kThreads, 0, stream>>>(
         sp, wt, x, o, n);
   else
-    shift_flux_kernel<T, false><<<blocks_for(n), kThreads, 0, stream>>>(
+    shift_flux_kernel<S, false><<<blocks_for(n), kThreads, 0, stream>>>(
         sp, wt, x, o, n);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace mgcfd
 
-// Returns the cudaError_t of the launch (0 = success). deltas is a host
-// array of num_deltas (<= 16) spans; w (num_deltas, 4, n), q and out
-// (5, n) are device pointers.
-extern "C" int mgcfd_shift_flux(int64_t is_double, int64_t rw,
+// Returns the cudaError_t of the launch (0 = success), or
+// cudaErrorInvalidValue for an unknown dtype code or too many spans.
+// dtype: 0 float32, 1 float64, 2 bfloat16 (the storage type of w, q and
+// out). deltas is a host array of num_deltas (<= 16) spans; w (num_deltas,
+// 4, n), q and out (5, n) are device pointers.
+extern "C" int mgcfd_shift_flux(int64_t dtype, int64_t rw,
                                 const int64_t* deltas, int64_t num_deltas,
                                 const void* w, const void* q, void* out,
                                 int64_t n, void* stream) {
   mgcfd::Spans sp;
   if (mgcfd::make_spans(deltas, num_deltas, &sp) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  return is_double ? mgcfd::launch_shift<double>(rw, sp, w, q, out, n, s)
-                   : mgcfd::launch_shift<float>(rw, sp, w, q, out, n, s);
+  return mgcfd::dispatch_dtype(dtype, [&](auto tag) {
+    using S = decltype(tag);
+    if (n == 0) return 0;
+    return mgcfd::launch_shift<S>(rw, sp, w, q, out, n, s);
+  });
 }

@@ -18,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mgcfd_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -26,8 +28,9 @@ NVCC_TIMEOUT_S = 300
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
-# C entry point -> argtypes (pointers and the stream as c_void_p, sizes
-# and flags as c_int64); every entry point returns its cudaError_t
+# C entry point -> argtypes (pointers and the stream as c_void_p, sizes,
+# flags and the dtype code as c_int64); every entry point returns its
+# cudaError_t
 _SIGNATURES = {
     "mgcfd_edge_csr": [_I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P],
     "mgcfd_fused_stage": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
@@ -36,6 +39,11 @@ _SIGNATURES = {
     "mgcfd_shift_fused_stage": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _P],
 }
+
+# the dtype code every C entry point takes first: the storage type of the
+# state and weights (bfloat16 is computed in float32 and rounded on store);
+# an entry point returns cudaErrorInvalidValue for any other code
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 _lib = None
 
@@ -94,6 +102,11 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    """The C entry points' code for the storage type of `t`."""
+    return DTYPE_CODES[t.dtype]
 
 
 def check(rc: int, what: str) -> None:

@@ -7,6 +7,11 @@ the plain version only for tensors on the CPU; anything else raises.
 Each role on the solver's path has its own wrapper instance with its own
 launch count (``launches``, a plain int added to at each kernel launch):
 ``flux``, ``rw``, ``restrict`` and ``prolong``.
+
+The state and weights are float32, float64 or bfloat16. bfloat16 is a
+storage format, as in the TPU kernel's bf16 branch
+(flux_window.py:254-296): the kernel and its plain version load bf16,
+compute in float32 and round once, to nearest even, on store.
 """
 from __future__ import annotations
 
@@ -59,6 +64,15 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
+STORAGE_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+
+
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type the kernels compute in for a storage type: float32 for
+    bfloat16, else the storage type itself."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 def complete8(q):
     """(5, ...) conserved -> [rho, mx, my, mz, E, p, speed+sos, 1/rho],
     the op order of flux_window._complete8 and csr_common.cuh."""
@@ -95,9 +109,17 @@ def edge_csr_plain(mode: str, csr: DeviceCSR, x: torch.Tensor):
     h of row i with neighbour j,
       flux  out[:, i] += flux_math(q_i, q_j, w[0:3, h], w[3, h])
       rw    out[:, i] += q_i + q_j + w0 + w1 + w2
-      wsum  out[:, i] += w[0, h] * x[:, j]."""
+      wsum  out[:, i] += w[0, h] * x[:, j],
+    in compute_dtype(x.dtype), rounded once to x.dtype."""
+    return row_sums(mode, csr, x).to(x.dtype)
+
+
+def row_sums(mode: str, csr: DeviceCSR, x: torch.Tensor):
+    """edge_csr_plain before its final rounding: in compute_dtype."""
+    c = compute_dtype(x.dtype)
+    x = x.to(c)
     xn = x.index_select(1, csr.col)
-    w = csr.w
+    w = csr.w.to(c)
     if mode == "wsum":
         vals = w[0] * xn
     else:
@@ -114,10 +136,10 @@ def edge_csr_plain(mode: str, csr: DeviceCSR, x: torch.Tensor):
 
 def check_operands(csr: DeviceCSR, x: torch.Tensor, mode: str) -> None:
     """Raise on what the kernel does not take."""
-    if x.dtype not in (torch.float32, torch.float64) or \
-            x.dtype != csr.w.dtype:
+    if x.dtype not in STORAGE_DTYPES or x.dtype != csr.w.dtype:
         raise TypeError(f"edge_csr: dtype {x.dtype} with weights "
-                        f"{csr.w.dtype}; float32 or float64, matching")
+                        f"{csr.w.dtype}; float32, float64 or bfloat16, "
+                        "matching")
     if tuple(x.shape) != (5, csr.num_cols) or not x.is_contiguous():
         raise ValueError(f"edge_csr: need a contiguous (5, {csr.num_cols}) "
                          f"state, got {tuple(x.shape)}")
@@ -149,7 +171,7 @@ class EdgeCSR:
         out = torch.empty((5, csr.num_rows), dtype=x.dtype, device=x.device)
         x_own = 0 if self.mode == "wsum" else x.data_ptr()
         rc = build.library().mgcfd_edge_csr(
-            int(x.dtype == torch.float64), MODES[self.mode],
+            build.dtype_code(x), MODES[self.mode],
             csr.row_ptr.data_ptr(), csr.col.data_ptr(), csr.w.data_ptr(),
             csr.num_entries, x_own, x.data_ptr(), csr.num_cols,
             out.data_ptr(), csr.num_rows,

@@ -6,14 +6,16 @@ the internal-edge flux over its CSR row, plus the dense boundary + wall
 flux from the aggregated normals nc (11, N), then out = old + fac * flux,
 plus the count of NaN/Inf/negative density or energy. The wrapper
 launches the kernel for CUDA tensors and takes the plain version only for
-tensors on the CPU.
+tensors on the CPU. At bfloat16 (flux_window.py:382-413) every operand is
+loaded as bf16, the stage is computed in float32, the new state rounded
+once on store, and the invalid count taken on the float32 values.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build, edge_csr
-from .edge_csr import DeviceCSR, complete8
+from .edge_csr import DeviceCSR, complete8, compute_dtype
 
 
 def bw_flux(qo, nc):
@@ -39,9 +41,11 @@ def bw_flux(qo, nc):
 
 def fused_stage_plain(csr: DeviceCSR, nc, q, old, fac):
     """What the kernel computes: (q_next (5, N), invalid count int32)."""
-    acc = edge_csr.edge_csr_plain("flux", csr, q)
-    qnew = old + fac * (acc + bw_flux(complete8(q), nc))
-    return qnew, invalid_count(qnew)
+    c = compute_dtype(q.dtype)
+    acc = edge_csr.row_sums("flux", csr, q)
+    qc = q.to(c)
+    qnew = old.to(c) + fac.to(c) * (acc + bw_flux(complete8(qc), nc.to(c)))
+    return qnew.to(q.dtype), invalid_count(qnew)
 
 
 def invalid_count(q):
@@ -75,7 +79,7 @@ class FusedStage:
         out = torch.empty_like(q)
         invalid = torch.zeros(1, dtype=torch.int32, device=q.device)
         rc = build.library().mgcfd_fused_stage(
-            int(q.dtype == torch.float64), csr.row_ptr.data_ptr(),
+            build.dtype_code(q), csr.row_ptr.data_ptr(),
             csr.col.data_ptr(), csr.w.data_ptr(), csr.num_entries,
             q.data_ptr(), old.data_ptr(), fac.data_ptr(), nc.data_ptr(),
             out.data_ptr(), invalid.data_ptr(), n,

@@ -12,6 +12,10 @@ versions below spell this out). The wrappers launch the kernels for CUDA
 tensors and take the plain versions only for tensors on the CPU; anything
 else raises. Each role has its own wrapper instance with its own launch
 count (``launches``): ``flux``, ``rw`` and ``fused_stage``.
+
+At bfloat16 (flux_shift.py:163-201 and :397-431) the kernels and their
+plain versions load bf16, compute in float32 and round once on store;
+the fused stage's invalid count is taken on the float32 values.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import torch
 
 from ..prep.shift import ShiftPlan
 from . import build, edge_csr
-from .edge_csr import complete8, flux_math
+from .edge_csr import STORAGE_DTYPES, complete8, compute_dtype, flux_math
 from .fused_stage import bw_flux, invalid_count
 
 MAX_SPANS = 16   # kMaxSpans in csrc/shift_common.cuh
@@ -72,14 +76,23 @@ def edge_values(mode: str, qa, qb, w):
 
 
 def shift_plain(mode: str, sh: DeviceShift, q):
-    """What the flux and rw modes compute, one span at a time."""
+    """What the flux and rw modes compute, one span at a time, in
+    compute_dtype(q.dtype), rounded once to q.dtype."""
+    return span_sums(mode, sh, q).to(q.dtype)
+
+
+def span_sums(mode: str, sh: DeviceShift, q):
+    """shift_plain before its final rounding: in compute_dtype."""
+    c = compute_dtype(q.dtype)
+    q = q.to(c)
+    w = sh.w.to(c)
     n = q.shape[1]
     acc = torch.zeros_like(q)
     for k, d in enumerate(sh.deltas):
         quiet = _quiescent(d, q)
         # val_d(j) for j in [0, N): b-endpoint j + d, quiescent past N-1
         val = edge_values(mode, q, torch.cat([q[:, d:], quiet], dim=1),
-                          sh.w[k])
+                          w[k])
         # val_d(j) for j in [-d, 0): quiescent a-endpoint, zero weight
         low = edge_values(mode, quiet, q[:, :d], torch.zeros(
             (4, d), dtype=q.dtype, device=q.device))
@@ -90,18 +103,19 @@ def shift_plain(mode: str, sh: DeviceShift, q):
 
 def shift_fused_stage_plain(sh: DeviceShift, nc, q, old, fac, spill=None):
     """What the fused kernel computes: (q_next (5, N), invalid count)."""
-    acc = shift_plain("flux", sh, q) + bw_flux(complete8(q), nc)
+    c = compute_dtype(q.dtype)
+    acc = span_sums("flux", sh, q) + bw_flux(complete8(q.to(c)), nc.to(c))
     if spill is not None:
-        acc = acc + spill
-    qnew = old + fac * acc
-    return qnew, invalid_count(qnew)
+        acc = acc + spill.to(c)
+    qnew = old.to(c) + fac.to(c) * acc
+    return qnew.to(q.dtype), invalid_count(qnew)
 
 
 def _check(sh: DeviceShift, q, name: str) -> None:
-    if q.dtype not in (torch.float32, torch.float64) or \
-            q.dtype != sh.w.dtype:
+    if q.dtype not in STORAGE_DTYPES or q.dtype != sh.w.dtype:
         raise TypeError(f"{name}: dtype {q.dtype} with weights "
-                        f"{sh.w.dtype}; float32 or float64, matching")
+                        f"{sh.w.dtype}; float32, float64 or bfloat16, "
+                        "matching")
     n = sh.num_nodes
     if tuple(q.shape) != (5, n) or not q.is_contiguous():
         raise ValueError(f"{name}: need a contiguous (5, {n}) state, got "
@@ -132,7 +146,7 @@ class ShiftFlux:
         out = torch.empty_like(q)
         deltas = _c_deltas(sh)
         rc = build.library().mgcfd_shift_flux(
-            int(q.dtype == torch.float64), MODES[self.mode],
+            build.dtype_code(q), MODES[self.mode],
             ctypes.addressof(deltas), len(sh.deltas), sh.w.data_ptr(),
             q.data_ptr(), out.data_ptr(), sh.num_nodes,
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -169,7 +183,7 @@ class ShiftFusedStage:
         invalid = torch.zeros(1, dtype=torch.int32, device=q.device)
         deltas = _c_deltas(sh)
         rc = build.library().mgcfd_shift_fused_stage(
-            int(q.dtype == torch.float64), ctypes.addressof(deltas),
+            build.dtype_code(q), ctypes.addressof(deltas),
             len(sh.deltas), sh.w.data_ptr(), q.data_ptr(), old.data_ptr(),
             fac.data_ptr(), nc.data_ptr(),
             None if spill is None else spill.data_ptr(), out.data_ptr(),

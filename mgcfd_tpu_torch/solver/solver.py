@@ -42,7 +42,8 @@ from ..kernels import DeviceCSR, DeviceShift, edge_csr, shift
 from ..kernels.fused_stage import fused_stage, invalid_count
 from ..mesh.build import apply_ewt_conditioning
 from ..ops import (accumulate_flux, boundary_edge_flux, calc_rms,
-                   compute_step_factor, compute_step_factor_legacy,
+                   cbrt_volumes, compute_step_factor,
+                   compute_step_factor_legacy,
                    indirect_rw_edge_values, internal_edge_flux,
                    invalid_variables_count, mg_restrict,
                    prolong_residuals_interpolate, residual, time_step,
@@ -52,13 +53,15 @@ from ..prep.csr import build_edge_csr, build_flux_csr, build_prolong_csr, \
     build_restrict_csr
 from ..prep.shift import build_shift_plan, shift_flux
 
-DTYPES = {"float32": torch.float32, "float64": torch.float64}
+DTYPES = {"float32": torch.float32, "float64": torch.float64,
+          "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass
 class DeviceLevel:
     num_nodes: int
     volumes: torch.Tensor
+    cbrt_volumes: torch.Tensor     # cbrt(V), taken once (step factor)
     coords: Optional[torch.Tensor]
     edge_a: torch.Tensor           # int64
     edge_b: torch.Tensor
@@ -110,7 +113,8 @@ def resolve_accumulate(mesh: MultigridMesh, config: SolverConfig,
     'window', at fp32 and fp64 alike (the H100 runs fp64 natively);
     'segment' on the CPU. Mutates config in place. Returns the levels'
     shift plans when it built them, else None, so that the caller need
-    not build them again."""
+    not build them again. bfloat16 resolves as float32 does: on the card
+    the kernels keep it as a storage format, as JAX's do on the TPU."""
     if config.accumulate != "auto":
         return None
     if device.type != "cuda":
@@ -132,7 +136,9 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
                         device: torch.device) -> DeviceMesh:
     """Condition the edge weights per mesh variant (euler3d:333-352) on
     copies, cast to the configured dtype, upload, and build the plans and
-    boundary/wall constants of the chosen path."""
+    boundary/wall constants of the chosen path. Every float64 host array
+    is cast as mgcfd_tpu casts it (torch rounds float64 -> bfloat16
+    through float32, as jnp.asarray and ml_dtypes do)."""
     dtype = DTYPES[config.dtype]
     levels = [dataclasses.replace(lv, edge_w=lv.edge_w.copy(),
                                   bedge_w=lv.bedge_w.copy(),
@@ -153,8 +159,10 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
 
     dlevels = []
     for li, lv in enumerate(levels):
+        volumes = put(lv.volumes)
         d = DeviceLevel(
-            num_nodes=lv.num_nodes, volumes=put(lv.volumes),
+            num_nodes=lv.num_nodes, volumes=volumes,
+            cbrt_volumes=cbrt_volumes(volumes),
             coords=None if lv.coords is None else put(lv.coords),
             edge_a=put(lv.edge_a, torch.int64),
             edge_b=put(lv.edge_b, torch.int64), edge_w=put(lv.edge_w),
@@ -240,7 +248,7 @@ def _visit(lvl: DeviceLevel, variables, ff_flux, config: SolverConfig,
     if legacy_step:
         sf = compute_step_factor_legacy(variables, lvl.volumes)
     else:
-        sf = compute_step_factor(variables, lvl.volumes)
+        sf = compute_step_factor(variables, lvl.volumes, lvl.cbrt_volumes)
     invalid = torch.zeros((), dtype=torch.int64, device=variables.device)
     for j in range(RK):
         fluxes = _compute_fluxes(lvl, variables, ff_flux)
@@ -261,8 +269,7 @@ def t_step_factor(lvl: DeviceLevel, q, legacy_step: bool):
     if legacy_step:
         return 0.5 / (torch.sqrt(lvl.volumes)
                       * (prim["speed"] + prim["sos"]))
-    dt = 0.5 * torch.pow(lvl.volumes, 1.0 / 3.0) / (prim["speed"]
-                                                   + prim["sos"])
+    dt = 0.5 * lvl.cbrt_volumes / (prim["speed"] + prim["sos"])
     return torch.min(dt).expand(dt.shape) / lvl.volumes
 
 
@@ -512,5 +519,5 @@ class MGCFDSolver:
         if self.dmesh.variant.uses_legacy_step_factor:
             sf = compute_step_factor_legacy(v, lvl.volumes)
         else:
-            sf = compute_step_factor(v, lvl.volumes)
+            sf = compute_step_factor(v, lvl.volumes, lvl.cbrt_volumes)
         return sf.detach().to("cpu", torch.float64).numpy()

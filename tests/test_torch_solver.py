@@ -121,7 +121,7 @@ def test_accumulate_resolution_and_unported_options():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             MGCFDSolver(mesh, SolverConfig(accumulate=mode), device="cpu")
     for kw in ({"flux_cripple": True}, {"num_partitions": 2},
-               {"checkpoint_dir": "x"}, {"dtype": "bfloat16"}):
+               {"checkpoint_dir": "x"}, {"dtype": "float16"}):
         with pytest.raises(NotImplementedError):
             MGCFDSolver(mesh, SolverConfig(**kw), device="cpu")
     with pytest.raises(NotImplementedError, match="flux_fission"):
@@ -161,11 +161,11 @@ def test_unported_field_raises(field):
 def test_auto_resolution(device, kind):
     """auto on CUDA is the span kernels ('pallas') where every level's
     shift plan covers the edges (the box) and the CSR kernels ('window')
-    elsewhere (the tet, covered 3-18%), at fp32 and fp64 alike; on the
-    CPU it is the plain path. The plans it builds come back for reuse."""
+    elsewhere (the tet, covered 3-18%), at fp32, fp64 and bf16 alike; on
+    the CPU it is the plain path. The plans it builds come back for reuse."""
     from mgcfd_tpu_torch.solver.solver import resolve_accumulate
     mesh = mesh_from_arrays(jax_mesh(kind, MeshVariant.M6_WING))
-    for dtype in ("float32", "float64"):
+    for dtype in ("float32", "float64", "bfloat16"):
         cfg = SolverConfig(dtype=dtype)
         plans = resolve_accumulate(mesh, cfg, torch.device(device))
         if device == "cpu":
@@ -177,3 +177,25 @@ def test_auto_resolution(device, kind):
         explicit = SolverConfig(dtype=dtype, accumulate="window")
         resolve_accumulate(mesh, explicit, torch.device(device))
         assert explicit.accumulate == "window"
+
+
+def test_step_factors_match_jax_within_one_ulp_at_fp32():
+    """The step factor's cube root, taken once per level on the host, is
+    what mgcfd_tpu's jnp.cbrt gives: at fp32 on a 20^3 box of the flagship
+    family, from one shared state, every step factor is within 1 ulp of
+    the JAX package's."""
+    jmesh = jax_mg_box(20, 20, 20, 2, h=(0.1, 0.1, 0.1), volume_jitter=0.2,
+                       seed=0)
+    ref = JaxSolver(jmesh, JaxConfig(dtype="float32", accumulate="segment"))
+    ref.run(1)
+    st = ref._state_node_major()
+    s = MGCFDSolver(mesh_from_arrays(jmesh),
+                    SolverConfig(dtype="float32", accumulate="segment"),
+                    device="cpu")
+    s.load_state(state_from_arrays(
+        [np.asarray(v, np.float64) for v in st["variables"]],
+        [np.asarray(r, np.float64) for r in st["residuals"]]))
+    for lev in range(2):
+        want = np.asarray(ref.step_factors(lev), np.float32)
+        got = s.step_factors(lev)
+        assert np.all(np.abs(got - want) <= np.spacing(np.abs(want)))
