@@ -12,11 +12,15 @@ What it does, in order, printing each step with the elapsed seconds:
   3. builds the CUDA kernels with one nvcc call, and checks that each C
      entry point refuses a dtype code it does not know;
   4. holds every kernel against its plain PyTorch version on the card, in
-     fp64, fp32 and bf16: edge_csr in flux, rw and wsum modes and
-     fused_stage at the box flagship's level-0 shapes, shift in flux and
-     rw modes and shift.fused_stage (with and without a spill operand) at
-     its level-0 and level-1 shapes; at bf16 every element within one bf16
-     spacing, with the share of bit-equal elements printed;
+     fp64, fp32 and bf16, printing the share of bit-equal elements:
+     edge_csr in flux, rw and wsum modes at the box flagship's level-0
+     shapes, shift in flux and rw modes and shift.fused_stage (with and
+     without a spill operand) and fused_stage at every level's shapes; the
+     two tiled stage kernels also at shapes that stress their tiling (the
+     flagship's plans cut to one span, a box whose two longer strides
+     exceed the halo, the 32^3 tet's levels with 16-span plans), each
+     launched twice (bit-equal) and with planted invalid values (counts
+     equal); at bf16 every element within one bf16 spacing;
   5. drives the main path, MGCFDSolver(...).run() on the box flagship
      (304,640 nodes, 4 levels) with accumulate='auto', which takes the
      span kernels ('pallas') there: fp64 through the kernels against fp64
@@ -35,7 +39,8 @@ What it does, in order, printing each step with the elapsed seconds:
      edge_csr flux kernel into the fused stage's spill operand; fp64
      against the plain path, and bf16, launches counted;
   9. runs a 32^3, 3-level tet hierarchy, which `auto` sends to 'window',
-     through both paths at fp64, and through `auto` at bf16;
+     through both paths at fp64, through `auto` at bf16, and through
+     'pallas' at fp64 (span plans that cover little, spill edges);
  10. times each V-cycle (fp32 beside bf16) and each kernel at fp32, fp64
      and bf16 beside its bound, its plain version and a library call where
      one computes the same function;
@@ -124,6 +129,9 @@ BF16_TOL = 3e-2
 # and each cycle's bf16 RMS within 2% of the fp64 RMS (the same CPU runs:
 # at most 0.71%; bf16 holds 8 significant bits, 0.39% per rounding)
 BF16_RMS_TOL = 2e-2
+# a box whose two longer strides, 200 and 28,800, both exceed the span
+# stage's halo: one is evaluated directly, the other marched
+STRESS_BOX = (6, 144, 200)
 # launches per cycle of each path on the 4-level flagship: 6 visits of 3
 # RK stages, 3 restrictions and 3 prolongations
 MG = {"edge_csr.wsum.restrict": 3, "edge_csr.wsum.prolong": 3}
@@ -216,8 +224,9 @@ def check_cases(cases, dt) -> None:
             continue
         tol = TOLS[str(dt)]
         err = rel_err(got, want)
+        same = float((got == want).double().mean())
         log(f"check {name:30s} {str(dt):14s} max rel err {err:.3e} "
-            f"(tol {tol:.0e})")
+            f"(tol {tol:.0e}); bit-equal {same:.4f}")
         require(err <= tol, f"{name} {dt}: {err:.3e} > {tol:.0e}")
 
 
@@ -232,9 +241,88 @@ def planted(q):
     return bad
 
 
+def hold_stage(name, kernel, plain, args, q, dt) -> None:
+    """A redesigned RK-stage kernel against its plain version on one
+    input (check_cases, with the share of bit-equal elements), two
+    launches bit-equal, invalid counts equal, and with a planted NaN,
+    rho < 0 and E < 0 the counts equal and above 0."""
+    import torch
+    k1, i1 = kernel(*args(q))
+    k2, i2 = kernel(*args(q))
+    p, pi = plain(*args(q))
+    torch.cuda.synchronize()
+    require(torch.equal(k1, k2) and int(i1) == int(i2),
+            f"{name} {dt}: two launches on the same input differ")
+    check_cases([(name, k1, p)], dt)
+    require(int(i1) == int(pi), f"{name} {dt}: invalid counts "
+            f"{int(i1)} / {int(pi)}")
+    bad = planted(q)
+    ki, pi = int(kernel(*args(bad))[1]), int(plain(*args(bad))[1])
+    require(ki == pi > 0, f"{name} {dt}: planted invalid counts {ki} / "
+            f"{pi}")
+
+
+def level_nc(lv, dt, dev):
+    """The aggregated boundary/wall normals (11, N) of a host level."""
+    import numpy as np
+    import torch
+    from mgcfd_tpu_torch.core.constants import far_field_state
+    from mgcfd_tpu_torch.ops.tops import build_dense_boundary_wall
+    bdn, wln, wlc = build_dense_boundary_wall(
+        lv.num_nodes, lv.bedge_b, lv.bedge_w, lv.wedge_b, lv.wedge_w,
+        far_field_state(np.float64)[1])
+    return torch.as_tensor(np.concatenate([bdn, wln, wlc])).to(dev, dt)
+
+
+def check_stage_shapes(mesh, tmesh, dtypes, dev) -> None:
+    """The two redesigned stage kernels at shapes that stress their tiling,
+    for each dtype: shift.fused_stage with the box flagship's plans cut to
+    one span (spill operand), on a box whose two longer strides both
+    exceed the halo (200 evaluated directly, 28,800 marched), and on the
+    32^3 tet's levels with plans of 16 spans (min_density 0.0005: halo,
+    direct and marched spans, 0.2-8% coverage); fused_stage on that box
+    and on the tet's levels."""
+    import torch
+    from mgcfd_tpu_torch.kernels import DeviceCSR, DeviceShift, shift
+    from mgcfd_tpu_torch.kernels.fused_stage import (fused_stage,
+                                                     fused_stage_plain)
+    from mgcfd_tpu_torch.mesh.generate import generate_box_mesh
+    from mgcfd_tpu_torch.prep.csr import build_flux_csr
+    from mgcfd_tpu_torch.prep.shift import build_shift_plan
+    box = generate_box_mesh(*STRESS_BOX)
+    cases = [(f"flagship L{i} one-span", lv, {"max_deltas": 1}, False)
+             for i, lv in enumerate(mesh.levels)]
+    cases.append((f"box {'x'.join(map(str, STRESS_BOX))}", box, {}, True))
+    cases += [(f"tet32 L{i}", lv, {"min_density": 0.0005}, True)
+              for i, lv in enumerate(tmesh.levels)]
+    for dt in dtypes:
+        for label, lv, kw, with_csr in cases:
+            n = lv.num_nodes
+            nc = level_nc(lv, dt, dev)
+            q = random_state(n, 31, dt, dev)
+            old = q + 1e-3 * random_state(n, 32, dt, dev)
+            fac = torch.full((n,), 1e-3, dtype=dt, device=dev)
+            spill = 1e-3 * random_state(n, 33, dt, dev)
+            plan = build_shift_plan(lv, **kw)
+            sh = DeviceShift.from_plan(plan, n, dev, dt)
+            sch = sh.schedule
+            log(f"{label}: {n} nodes, spans {sh.deltas}, kinds {sch.kinds} "
+                f"(0 halo, 1 marched, 2 direct), H {sch.halo}, "
+                f"{sch.pencils} pencils x {sch.steps} steps, M "
+                f"{sch.chunk}, spill edges {plan.spill_a.size}")
+            hold_stage(f"shift.fused_stage+spill {label}",
+                       shift.fused_stage, shift.shift_fused_stage_plain,
+                       lambda x: (sh, nc, x, old, fac, spill), q, dt)
+            if with_csr:
+                csr = DeviceCSR.from_plan(build_flux_csr(lv), dev, dt)
+                hold_stage(f"fused_stage {label}",
+                           fused_stage, fused_stage_plain,
+                           lambda x: (csr, nc, x, old, fac), q, dt)
+
+
 def check_csr_kernels(solvers) -> None:
-    """Each CSR kernel against its plain version at level-0 shapes, for
-    each solver's dtype."""
+    """Each CSR kernel against its plain version at level-0 shapes, and
+    fused_stage at every level's, for each solver's dtype."""
     from mgcfd_tpu_torch.kernels import edge_csr
     from mgcfd_tpu_torch.kernels.fused_stage import (fused_stage,
                                                      fused_stage_plain)
@@ -270,17 +358,26 @@ def check_csr_kernels(solvers) -> None:
         log(f"check fused_stage invalid count with a planted NaN, rho<0 "
             f"and E<0: kernel {k_inv}, plain {p_inv}")
         require(k_inv == p_inv > 0, "fused_stage invalid counts differ")
+        # every level: ragged last tiles
+        for lev, L in enumerate(solver.dmesh.levels):
+            ql = random_state(L.num_nodes, 40 + lev, dt, dev)
+            oldl = ql + 1e-3 * random_state(L.num_nodes, 2, dt, dev)
+            facl = t_step_factor(L, ql, False) / 3.0
+            hold_stage(f"fused_stage L{lev}", fused_stage,
+                       fused_stage_plain,
+                       lambda x: (L.csr, L.nc, x, oldl, facl), ql, dt)
 
 
 def check_shift_kernels(solvers) -> None:
-    """Each span kernel against its plain version at level-0 and level-1
-    shapes (level 1: 38,080 nodes, no multiple of the 256-thread block,
-    spans up to 1120 reach across blocks), for each solver's dtype."""
+    """Each span kernel against its plain version at every level's shapes
+    (levels 1-3: 38,080, 4,896 and 648 nodes, no multiple of the
+    256-node tile, spans up to 1120 reach across tiles), for each
+    solver's dtype; the fused stage also launched twice (bit-equal)."""
     from mgcfd_tpu_torch.kernels import shift
     from mgcfd_tpu_torch.solver.solver import t_step_factor
     for solver in solvers:
         dt = solver.dtype
-        for lev in (0, 1):
+        for lev in range(len(solver.dmesh.levels)):
             L = solver.dmesh.levels[lev]
             sh, n, dev = L.shift, L.num_nodes, L.volumes.device
             q = random_state(n, 11 + lev, dt, dev)
@@ -290,6 +387,13 @@ def check_shift_kernels(solvers) -> None:
             k0, k0_inv = shift.fused_stage(sh, L.nc, q, old, fac)
             p0, p0_inv = shift.shift_fused_stage_plain(sh, L.nc, q, old,
                                                        fac)
+            again, _ = shift.fused_stage(sh, L.nc, q, old, fac)
+            require(bool((again == k0).all()),
+                    f"shift.fused_stage L{lev} {dt}: two launches differ")
+            sch = sh.schedule
+            log(f"shift.fused_stage L{lev}: kinds {sch.kinds}, H "
+                f"{sch.halo}, {sch.pencils} pencils x {sch.steps} steps, "
+                f"M {sch.chunk}")
             k1, _ = shift.fused_stage(sh, L.nc, q, old, fac, spill)
             p1, _ = shift.shift_fused_stage_plain(sh, L.nc, q, old, fac,
                                                   spill)
@@ -397,6 +501,7 @@ def refuse_unknown_dtype(lib) -> None:
     know (here 7), before it reads any pointer or launches anything."""
     import ctypes
     deltas = (ctypes.c_int64 * 1)(1)
+    kinds = (ctypes.c_int64 * 1)(0)   # one halo span
     rcs = {
         "mgcfd_edge_csr": lib.mgcfd_edge_csr(7, 0, None, None, None, 0,
                                              None, None, 1, None, 1, None),
@@ -406,8 +511,8 @@ def refuse_unknown_dtype(lib) -> None:
         "mgcfd_shift_flux": lib.mgcfd_shift_flux(
             7, 0, ctypes.addressof(deltas), 1, None, None, None, 1, None),
         "mgcfd_shift_fused_stage": lib.mgcfd_shift_fused_stage(
-            7, ctypes.addressof(deltas), 1, None, None, None, None, None,
-            None, None, None, 1, None),
+            7, ctypes.addressof(deltas), ctypes.addressof(kinds), 1, 8, 1,
+            None, None, None, None, None, None, None, None, 1, None),
     }
     log(f"dtype code 7 refused: {rcs}")
     require(all(rc != 0 for rc in rcs.values()),
@@ -630,6 +735,10 @@ def main() -> int:
 
     check_csr_kernels((w64, w32, w16))
     check_shift_kernels((m64, m32, m16))
+    tmesh = generate_unstructured_hierarchy(32, 32, 32, 3, seed=0)
+    check_stage_shapes(mesh, tmesh, (torch.float64, torch.float32,
+                                     torch.bfloat16),
+                       m64.dmesh.levels[0].volumes.device)
 
     # --- fp64: both kernel paths and the unfused span path against the
     # plain path, launches counted ---
@@ -739,8 +848,8 @@ def main() -> int:
     # records read the fp64 runs' launches for those
     runs32["unfused"], runs32["spill"] = runs64["unfused"], runs64["spill"]
 
-    # --- tet hierarchy: auto takes 'window' there, fp64 and bf16 ---
-    tmesh = generate_unstructured_hierarchy(32, 32, 32, 3, seed=0)
+    # --- tet hierarchy: auto takes 'window' there, fp64 and bf16; and
+    # 'pallas' at fp64 (level 0 and 1 plans hold no span, every edge spills)
     log(f"tet {tmesh.levels[0].num_nodes} nodes, "
         f"{tmesh.levels[0].num_internal_edges} edges, 3 levels")
     kt, kt16 = solver(tmesh, "float64"), solver(tmesh, "bfloat16")
@@ -750,6 +859,11 @@ def main() -> int:
     kt.run(2)
     pt.run(2)
     same_as_plain(kt, pt, tmesh, "tet fp64, 2 cycles")
+    ktp = solver(tmesh, "float64", "pallas")
+    counts, _ = counted_run(ktp, 2, "tet fp64 'pallas'")
+    require(counts["shift.fused_stage"] > 0 and counts["fused_stage"] == 0,
+            "tet 'pallas' run missed the span stage")
+    same_as_plain(ktp, pt, tmesh, "tet fp64 'pallas', 2 cycles")
     counted_run(kt16, 2, "tet bf16 ('window', auto)",
                 {"fused_stage": 12, "edge_csr.rw": 12,
                  "edge_csr.wsum.restrict": 2, "edge_csr.wsum.prolong": 2})

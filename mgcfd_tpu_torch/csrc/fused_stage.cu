@@ -1,4 +1,5 @@
-// fused_stage<S>: one whole RK stage, one thread per node.
+// fused_stage<S>: one whole RK stage over an owner-sorted CSR, row tiles
+// with shared node primitives and entry-parallel flux.
 //
 // Replaces the Pallas kernel
 // mgcfd_tpu/pallas/flux_window.py::_window_fused_kernel (:359): per owner
@@ -12,42 +13,175 @@
 // the CSR holds every half-edge.
 //
 // Bound on the H100 (3.35 TB/s): bytes. Level 0 of the box flagship at
-// fp32 moves the flux mode's ~49 MB plus old (6.1 MB), fac (1.2 MB) and nc
-// (13.4 MB): about 70 MB, about 21 us. chip_smoke.py recomputes it.
-// What the design does about it: one pass replaces the flux, boundary,
-// time-step and validity passes (three extra state round trips); the state
-// gathers hit the 50 MB L2.
+// fp32 moves row_ptr and col (8.4 MB), the weights (4 x 1,800,656 half-
+// edges, 28.8 MB), the state, old and out (18.3 MB), fac (1.2 MB) and nc
+// (13.4 MB): about 70 MB, about 21 us; at bfloat16 about 39 MB, 12 us.
+// chip_smoke.py recomputes it. One thread per row, as the kernel was first
+// ported, completed the neighbour of every half-edge (5.9 completions per
+// node at level 0, one division and two square roots each), and a warp's
+// threads walked rows of different lengths, so each warp-wide load of col
+// and w touched about six times the sectors it used.
+//
+// The design:
+//   - Row tiles. A block of kThreads = 256 threads owns B = kTileRows =
+//     128 consecutive rows [r0, r0 + B), one row each for the first B
+//     threads. Their entries are the contiguous slice [row_ptr[r0],
+//     row_ptr[r0 + B]) of col and w. Tiles of 128 rows rather than 256
+//     double the blocks on the coarse levels, whose tiles do not fill the
+//     card: on the H100 that took the box flagship's 'window' cycle from
+//     267-269 to 220 us of this kernel at fp32 and from 203-204 to 170 at
+//     bf16 (level 0: 44.9 against 47.3-47.6 us at fp32, 32.6 against
+//     31.5-31.9 at bf16); tiles of 64 were slower.
+//   - Shared node primitives. The block completes its own nodes [r0,
+//     r0 + B) once into shared memory, with vector loads (window.cuh), and
+//     a neighbour inside the tile is read from there; any other is
+//     completed from device memory. On the box flagship's level 0 that
+//     holds the neighbours at +-1 and most of those at +-70, and none at
+//     +-4480. The window reaches no further than the tile (H = 0): wider
+//     windows, which hold more neighbours, were measured no faster on the
+//     H100 while this kernel was designed.
+//   - Entry-parallel flux. The slice is walked in chunks of E entries
+//     (E = 1024 at fp32 and bf16, 512 at fp64). Each chunk's col and w
+//     are staged in shared memory by cp.async copies (the first chunk's
+//     while the window is completed; bf16 weights as 4-byte pairs), and
+//     every row's thread marks its entries with its row; then the block's
+//     threads evaluate the flux values entry by entry, entry c0 + x by
+//     thread x mod kThreads, into shared memory; then each row's thread
+//     adds its entries in CSR order (the order of csr_common.cuh's
+//     flux_row).
+//     Fixed B with a loop over chunks, rather than tiles cut to an entry
+//     cap on the host: no per-plan table to build, upload and keep in step
+//     with the CSR, and a row of any length runs; a box tile's ~750
+//     entries take one chunk at fp32 and bf16, two at fp64.
+//   - Then each row's thread adds the boundary/wall flux, updates the
+//     state and counts invalid values.
+// What holds it back (bench/stage_ab.py on the H100, level 0, warm L2):
+// it is slower than the one-thread-per-row kernel it replaced, and more
+// on the coarse levels, whose few tiles leave most of the card idle while
+// each block runs its phases (PERF.md). The completions it saves were
+// cheap; each block runs its window, its chunks' staging, flux and sums
+// as phases between barriers, so its memory latencies add up per block
+// instead of overlapping across rows, and 4 blocks per SM (5 at bf16) do
+// not hide them.
+//
+// Shared memory per block: the window, 8 B compute-type values, the
+// chunk's flux values, 5 E, its weights, 4 (E + 2) stored values, its
+// neighbours, E ints, and its entries' rows, E bytes: 46,112 bytes at
+// fp32, 37,904 at bf16 and 47,680 at fp64, within the 48 KiB a launch
+// gets without asking.
+// Registers: __launch_bounds__ fits 4 blocks per SM at fp32 and fp64, 5
+// at bf16 (window.cuh).
 // At bfloat16 (the bf16 branch, :382-413) every operand but row_ptr and
-// col halves (about 39 MB); old + fac * flux is formed in float32 from the
-// widened operands, rounded once on store, and counted before rounding.
-#include "csr_common.cuh"
+// col is stored as bf16 and widened on load; the window, flux values, sums
+// and old + fac * flux are float32, rounded once on store and counted
+// before rounding.
+#include "window.cuh"
 
 namespace mgcfd {
 
+constexpr int kTileRows = 128;
+
+// entries per chunk: 20,480 bytes of flux values. Half as many, with a
+// block more per SM, made level 0 of the box flagship faster at fp32 on
+// the H100 but its coarse levels, with fewer blocks than the card has
+// room for, slower by more.
+template <typename C>
+__host__ __device__ constexpr int chunk_entries() {
+  return 4096 / static_cast<int>(sizeof(C));
+}
+
+// weights of entry h of the chunk from c0 sit at sw[k * (E + 2) + h - c0 +
+// wshift(c0)]: bfloat16 weights are copied as 4-byte pairs from the even
+// entry at or below c0 (n_half is even, so no pair runs past the end)
 template <typename S>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ int wshift(int c0) {
+  return sizeof(S) == 2 ? (c0 & 1) : 0;
+}
+
+// the chunk [c0, c1) of col and w into shared memory, asynchronously
+template <typename S>
+__device__ __forceinline__ void stage_chunk(int* __restrict__ scol,
+                                            S* __restrict__ sw,
+                                            const int* __restrict__ col,
+                                            const S* __restrict__ w,
+                                            int64_t n_half, int E, int c0,
+                                            int c1) {
+  const int t = threadIdx.x;
+  for (int h = c0 + t; h < c1; h += kThreads)
+    async_copy(scol + h - c0, col + h);
+  if constexpr (sizeof(S) == 2) {
+    using P = __nv_bfloat162;
+    const int p0 = c0 >> 1, p1 = (c1 + 1) >> 1;
+    for (int p = p0 + t; p < p1; p += kThreads)
+      for (int k = 0; k < 4; ++k)
+        async_copy(reinterpret_cast<P*>(sw + k * (E + 2)) + p - p0,
+                   reinterpret_cast<const P*>(w + k * n_half) + p);
+  } else {
+    for (int h = c0 + t; h < c1; h += kThreads)
+      for (int k = 0; k < 4; ++k)
+        async_copy(sw + k * (E + 2) + h - c0, w + k * n_half + h);
+  }
+}
+
+template <typename S>
+__global__ void __launch_bounds__(kThreads, FusedMinBlocks<S>::value)
     fused_stage_kernel(const int* __restrict__ row_ptr,
                        const int* __restrict__ col, const S* __restrict__ w,
                        int64_t n_half, const S* __restrict__ q,
                        const S* __restrict__ old, const S* __restrict__ fac,
                        const S* __restrict__ nc, S* __restrict__ out,
-                       int* __restrict__ invalid, int64_t n) {
+                       int* __restrict__ invalid, int64_t n, bool vec) {
   using C = compute_t<S>;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  int bad = 0;
-  if (i < n) {
-    const State8<C> qo = complete8(q, n, i);
-    C acc[5], bw[5];
-    flux_row(row_ptr, col, w, n_half, q, n, i, qo, acc);
-    bw_flux(qo, nc, n, i, bw);
-    const C f = to_compute(fac[i]);
-    for (int c = 0; c < 5; ++c) {
-      const C a = acc[c] + bw[c];
-      const C qn = to_compute(old[c * n + i]) + f * a;
-      out[c * n + i] = to_storage<S>(qn);
-      bad += invalid_value(c, qn);
+  constexpr int E = chunk_entries<C>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int W = kTileRows;
+  C* sq = reinterpret_cast<C*>(smem);   // (8, B) window: the tile's nodes
+  C* sf = sq + 8 * W;                   // (5, E) flux values
+  S* sw = reinterpret_cast<S*>(sf + 5 * E);        // (4, E + 2) weights
+  int* scol = reinterpret_cast<int*>(sw + 4 * (E + 2));  // (E) neighbours
+  unsigned char* srow = reinterpret_cast<unsigned char*>(scol + E);
+  const int t = threadIdx.x;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kTileRows;
+  const int64_t i = r0 + t;
+  const bool own = t < kTileRows && i < n;
+  const int64_t r1 = r0 + kTileRows < n ? r0 + kTileRows : n;
+  const int e0 = row_ptr[r0], e1 = row_ptr[r1];
+  const int h0 = own ? row_ptr[i] : e1, h1 = own ? row_ptr[i + 1] : e1;
+  stage_chunk(scol, sw, col, w, n_half, E, e0, e0 + E < e1 ? e0 + E : e1);
+  complete_window<S>(q, n, r0, W, sq, W, 0, vec);
+  C acc[5];
+  for (int c = 0; c < 5; ++c) acc[c] = C(0);
+  for (int c0 = e0; c0 < e1; c0 += E) {
+    const int c1 = c0 + E < e1 ? c0 + E : e1;
+    if (c0 > e0) stage_chunk(scol, sw, col, w, n_half, E, c0, c1);
+    const int a0 = h0 > c0 ? h0 : c0, a1 = h1 < c1 ? h1 : c1;
+    for (int h = a0; h < a1; ++h)
+      srow[h - c0] = static_cast<unsigned char>(t);
+    async_wait_all();
+    __syncthreads();  // the window, the chunk and its rows are written
+    for (int x = t; x < c1 - c0; x += kThreads) {
+      const int64_t j = scol[x];
+      const int64_t pj = j - r0;
+      const State8<C> qn =
+          pj >= 0 && pj < W ? get8(sq, W, static_cast<int>(pj))
+                            : complete8(q, n, j);
+      C v[5];
+      const S* wx = sw + x + wshift<S>(c0);
+      flux_math(get8(sq, W, srow[x]), qn, to_compute(wx[0]),
+                to_compute(wx[E + 2]), to_compute(wx[2 * (E + 2)]),
+                to_compute(wx[3 * (E + 2)]), v);
+      for (int c = 0; c < 5; ++c) sf[c * E + x] = v[c];
     }
+    __syncthreads();  // the chunk's values are written
+    for (int h = a0; h < a1; ++h)
+      for (int c = 0; c < 5; ++c) acc[c] += sf[c * E + h - c0];
+    __syncthreads();  // the chunk's values, neighbours and rows are read
   }
+  if (e0 == e1) __syncthreads();  // the window is written
+  int bad = 0;
+  if (own)
+    bad = update_node(get8(sq, W, t), acc, nc, old, fac,
+                      static_cast<const S*>(nullptr), n, i, out, n, i);
   add_block_count(bad, invalid);
 }
 
@@ -56,12 +190,19 @@ int launch_fused(const void* row_ptr, const void* col, const void* w,
                  int64_t n_half, const void* q, const void* old,
                  const void* fac, const void* nc, void* out, void* invalid,
                  int64_t n, cudaStream_t stream) {
-  fused_stage_kernel<S><<<blocks_for(n), kThreads, 0, stream>>>(
+  using C = compute_t<S>;
+  constexpr int E = chunk_entries<C>();
+  constexpr size_t smem = sizeof(C) * (8 * kTileRows + 5 * E) +
+                          sizeof(S) * 4 * (E + 2) + sizeof(int) * E + E;
+  static_assert(smem <= 48 * 1024, "more shared memory than a launch gets");
+  const int64_t blocks = (n + kTileRows - 1) / kTileRows;
+  fused_stage_kernel<S><<<static_cast<unsigned>(blocks), kThreads, smem,
+                          stream>>>(
       static_cast<const int*>(row_ptr), static_cast<const int*>(col),
       static_cast<const S*>(w), n_half, static_cast<const S*>(q),
       static_cast<const S*>(old), static_cast<const S*>(fac),
       static_cast<const S*>(nc), static_cast<S*>(out),
-      static_cast<int*>(invalid), n);
+      static_cast<int*>(invalid), n, rows_take_vectors<S>(q, n));
   return static_cast<int>(cudaGetLastError());
 }
 

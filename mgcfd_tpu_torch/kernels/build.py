@@ -36,8 +36,8 @@ _SIGNATURES = {
     "mgcfd_fused_stage": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
                           _P],
     "mgcfd_shift_flux": [_I, _I, _P, _I, _P, _P, _P, _I, _P],
-    "mgcfd_shift_fused_stage": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _P],
+    "mgcfd_shift_fused_stage": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                                _P, _P, _P, _P, _I, _P],
 }
 
 # the dtype code every C entry point takes first: the storage type of the

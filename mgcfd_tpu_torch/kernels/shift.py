@@ -8,7 +8,9 @@ Replace mgcfd_tpu/pallas/flux_shift.py::_kernel (both modes) and
     val_d(j) = edge(q[j], q[j + d], w_d[j]),
 where an endpoint outside [0, N) is quiescent gas (rho = 1, momentum 0,
 E = 1) with zero weight, as the TPU kernel masks its lanes (the plain
-versions below spell this out). The wrappers launch the kernels for CUDA
+versions below spell this out). The fused stage's kernel tiles the nodes
+and shares their states through shared memory; span_schedule below
+sorts a plan's spans for it. The wrappers launch the kernels for CUDA
 tensors and take the plain versions only for tensors on the CPU; anything
 else raises. Each role has its own wrapper instance with its own launch
 count (``launches``): ``flux``, ``rw`` and ``fused_stage``.
@@ -33,6 +35,65 @@ from .fused_stage import bw_flux, invalid_count
 MAX_SPANS = 16   # kMaxSpans in csrc/shift_common.cuh
 MODES = {"flux": 0, "rw": 1}
 
+# the fused stage's tiling (csrc/shift_fused_stage.cu)
+TILE_NODES = 256      # B = kThreads: nodes per tile, one a thread
+MAX_HALO = 128        # kMaxHalo: the longest span kept in the halo
+HALO_ALIGN = 8        # H is a multiple of 8, so vector loads stay aligned
+# steps per chunk M aim at this many blocks: at fp32 and bf16 (5 blocks
+# fit on each of the 132 SMs) M = 2 on the box flagship's level 0, at fp64
+# (3 fit) M = 1, the fastest of M = 1, 2, 4, 8 on the H100 when the
+# kernel was designed
+TARGET_BLOCKS = {torch.float32: 528, torch.bfloat16: 528,
+                 torch.float64: 1056}
+HALO, MARCHED, DIRECT = 0, 1, 2   # span kinds (SpanKind)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpanSchedule:
+    """How the fused stage tiles a plan of spans over N nodes.
+
+    Each span in plan order is HALO (d <= MAX_HALO: its values are
+    evaluated once per tile from the shared-memory window), MARCHED (the
+    longest span above MAX_HALO: the tiles of a pencil step along it and
+    carry its values) or DIRECT (any other: evaluated from both endpoints).
+    Block b owns pencil b % pencils, the nodes [r0, r0 + TILE_NODES) of
+    [0, stride) with r0 = pencil * TILE_NODES, and the steps [c * chunk,
+    (c + 1) * chunk) with c = b // pencils; step s covers the nodes
+    r0 + s * stride + t for t < min(TILE_NODES, stride - r0)."""
+
+    kinds: tuple
+    halo: int        # H: the window reaches H nodes beyond the tile
+    stride: int      # the marched span, else TILE_NODES
+    pencils: int
+    steps: int
+    chunk: int       # M, steps per block
+
+    @property
+    def blocks(self) -> int:
+        return self.pencils * -(-self.steps // self.chunk)
+
+
+def span_schedule(deltas, num_nodes: int,
+                  dtype=torch.float32) -> SpanSchedule:
+    """The fused stage's tiling of a plan in a storage dtype (the C entry
+    point checks it and derives stride, pencils and steps the same
+    way)."""
+    deltas = [int(d) for d in deltas]
+    long = [k for k, d in enumerate(deltas) if d > MAX_HALO]
+    march = max(long, key=lambda k: deltas[k]) if long else None
+    kinds = tuple(HALO if d <= MAX_HALO else MARCHED if k == march
+                  else DIRECT for k, d in enumerate(deltas))
+    short = [d for d in deltas if d <= MAX_HALO]
+    halo = -(-max(short, default=0) // HALO_ALIGN) * HALO_ALIGN
+    stride = deltas[march] if march is not None else TILE_NODES
+    pencils = -(-stride // TILE_NODES)
+    steps = -(-num_nodes // stride)
+    chunk = 1
+    if march is not None:
+        chunk = max(1, pencils * steps // TARGET_BLOCKS[dtype])
+    return SpanSchedule(kinds=kinds, halo=halo, stride=stride,
+                        pencils=pencils, steps=steps, chunk=chunk)
+
 
 @dataclasses.dataclass
 class DeviceShift:
@@ -43,6 +104,11 @@ class DeviceShift:
     num_nodes: int
     deltas: tuple
     w: torch.Tensor
+    schedule: SpanSchedule = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.schedule = span_schedule(self.deltas, self.num_nodes,
+                                      self.w.dtype)
 
     @classmethod
     def from_plan(cls, plan: ShiftPlan, num_nodes: int, device,
@@ -126,8 +192,8 @@ def _check(sh: DeviceShift, q, name: str) -> None:
         raise ValueError(f"{name}: unsupported device {q.device}")
 
 
-def _c_deltas(sh: DeviceShift):
-    return (ctypes.c_int64 * max(1, len(sh.deltas)))(*sh.deltas)
+def _c_int64s(values):
+    return (ctypes.c_int64 * max(1, len(values)))(*values)
 
 
 class ShiftFlux:
@@ -144,7 +210,7 @@ class ShiftFlux:
         if not edge_csr._on_card(q):
             return shift_plain(self.mode, sh, q)
         out = torch.empty_like(q)
-        deltas = _c_deltas(sh)
+        deltas = _c_int64s(sh.deltas)
         rc = build.library().mgcfd_shift_flux(
             build.dtype_code(q), MODES[self.mode],
             ctypes.addressof(deltas), len(sh.deltas), sh.w.data_ptr(),
@@ -181,10 +247,12 @@ class ShiftFusedStage:
             return shift_fused_stage_plain(sh, nc, q, old, fac, spill)
         out = torch.empty_like(q)
         invalid = torch.zeros(1, dtype=torch.int32, device=q.device)
-        deltas = _c_deltas(sh)
+        deltas, sched = _c_int64s(sh.deltas), sh.schedule
+        kinds = _c_int64s(sched.kinds)
         rc = build.library().mgcfd_shift_fused_stage(
             build.dtype_code(q), ctypes.addressof(deltas),
-            len(sh.deltas), sh.w.data_ptr(), q.data_ptr(), old.data_ptr(),
+            ctypes.addressof(kinds), len(sh.deltas), sched.halo,
+            sched.chunk, sh.w.data_ptr(), q.data_ptr(), old.data_ptr(),
             fac.data_ptr(), nc.data_ptr(),
             None if spill is None else spill.data_ptr(), out.data_ptr(),
             invalid.data_ptr(), n,
