@@ -13,12 +13,16 @@ What it does, in order, printing each step with the elapsed seconds:
      entry point refuses a dtype code it does not know;
   4. holds every kernel against its plain PyTorch version on the card, in
      fp64, fp32 and bf16, printing the share of bit-equal elements:
-     edge_csr in flux, rw and wsum modes at the box flagship's level-0
-     shapes, shift in flux and rw modes and shift.fused_stage (with and
-     without a spill operand) and fused_stage at every level's shapes; the
-     two tiled stage kernels also at shapes that stress their tiling (the
-     flagship's plans cut to one span, a box whose two longer strides
-     exceed the halo, the 32^3 tet's levels with 16-span plans), each
+     edge_csr in flux and rw modes at the box flagship's level-0 shapes,
+     its wsum transfers, shift in flux and rw modes, shift.fused_stage
+     (with and without a spill operand) and fused_stage at every level's
+     shapes, with the launch shapes of the span kernel (channel split,
+     unrolled span loop) and of the wsum transfers (channel split, loads)
+     read from their C entry points and held to the Python mirrors; the span kernels and the two tiled stage kernels also at
+     shapes that stress their tiling and launch shapes (the flagship's
+     plans cut to one span, a box whose two longer strides exceed the
+     halo, a box whose node count is odd, the 32^3 tet's levels with
+     16-span plans, and the tet's wsum transfers), the stage kernels
      launched twice (bit-equal) and with planted invalid values (counts
      equal); at bf16 every element within one bf16 spacing;
   5. drives the main path, MGCFDSolver(...).run() on the box flagship
@@ -42,8 +46,9 @@ What it does, in order, printing each step with the elapsed seconds:
      through both paths at fp64, through `auto` at bf16, and through
      'pallas' at fp64 (span plans that cover little, spill edges);
  10. times each V-cycle (fp32 beside bf16) and each kernel at fp32, fp64
-     and bf16 beside its bound, its plain version and a library call where
-     one computes the same function;
+     and bf16 beside its bound, its plain version, a library call where
+     one computes the same function, and the launch floor (a one-element
+     in-place add, timed the same way);
  11. prints the card's name and power limit, one JSON line of kernel
      records, and last the JSON line {"ok": true, "device": {...}}.
 Any failed check raises, and the exit code is then non-zero. Without a
@@ -132,6 +137,8 @@ BF16_RMS_TOL = 2e-2
 # a box whose two longer strides, 200 and 28,800, both exceed the span
 # stage's halo: one is evaluated directly, the other marched
 STRESS_BOX = (6, 144, 200)
+# a box with an odd node count (47,565)
+ODD_BOX = (7, 45, 151)
 # launches per cycle of each path on the 4-level flagship: 6 visits of 3
 # RK stages, 3 restrictions and 3 prolongations
 MG = {"edge_csr.wsum.restrict": 3, "edge_csr.wsum.prolong": 3}
@@ -274,28 +281,83 @@ def level_nc(lv, dt, dev):
     return torch.as_tensor(np.concatenate([bdn, wln, wlc])).to(dev, dt)
 
 
+def check_span_kernels(sh, q, dt, label: str) -> None:
+    """shift.flux and shift.rw against their plain versions on one input,
+    with the launch shape the C entry point picks held to the Python
+    mirror (kernels/shift.py launch_shape)."""
+    from mgcfd_tpu_torch.kernels import shift
+    n = sh.num_nodes
+    cases, shapes = [], []
+    for mode, kern in (("flux", shift.flux), ("rw", shift.rw)):
+        got = kern.shape(sh)
+        want = shift.launch_shape(mode, dt, n, len(sh.deltas))
+        require(got == want, f"shift.{mode} {label} {dt}: the C entry "
+                f"point picks {got}, the mirror {want}")
+        shapes.append(f"{mode}: split {int(got.split)} unroll "
+                      f"{int(got.unroll)}")
+        cases.append((f"shift.{mode} {label}", kern(sh, q),
+                      shift.shift_plain(mode, sh, q)))
+    log(f"shift shapes {label} {TAGS[str(dt)]}: " + "; ".join(shapes))
+    check_cases(cases, dt)
+
+
+def wsum_case(label: str, kern, csr, x, dt):
+    """A wsum transfer's (name, kernel, plain) case, with the launch shape
+    the C entry point picks for the CSR held to the Python mirror
+    (kernels/edge_csr.py wsum_shape)."""
+    from mgcfd_tpu_torch.kernels import edge_csr
+    got = kern.shape(csr)
+    want = edge_csr.wsum_shape(csr.num_rows, csr.num_entries, dt)
+    require(got == want, f"{kern.name} {label} {dt}: the C entry point "
+            f"picks {got}, the mirror {want}")
+    log(f"wsum shape {label} {TAGS[str(dt)]}: {csr.num_rows} rows, "
+        f"{csr.num_entries} entries: split {int(got.split)} loads "
+        f"{got.loads}")
+    return (f"{kern.name} {label}", kern(csr, x),
+            edge_csr.edge_csr_plain("wsum", csr, x))
+
+
 def check_stage_shapes(mesh, tmesh, dtypes, dev) -> None:
-    """The two redesigned stage kernels at shapes that stress their tiling,
-    for each dtype: shift.fused_stage with the box flagship's plans cut to
+    """The span kernels and the two redesigned stage kernels at shapes
+    that stress their tiling and launch shapes, for each dtype: shift.flux,
+    shift.rw and shift.fused_stage with the box flagship's plans cut to
     one span (spill operand), on a box whose two longer strides both
-    exceed the halo (200 evaluated directly, 28,800 marched), and on the
-    32^3 tet's levels with plans of 16 spans (min_density 0.0005: halo,
-    direct and marched spans, 0.2-8% coverage); fused_stage on that box
-    and on the tet's levels."""
+    exceed the halo (200 evaluated directly, 28,800 marched), on a box
+    whose node count is odd, and on the 32^3 tet's levels with plans of
+    16 spans (min_density 0.0005: halo, direct and marched spans, 0.2-8%
+    coverage); fused_stage on those boxes and on the tet's levels; the
+    wsum transfers between the tet's levels (irregular rows)."""
     import torch
-    from mgcfd_tpu_torch.kernels import DeviceCSR, DeviceShift, shift
+    from mgcfd_tpu_torch.kernels import DeviceCSR, DeviceShift, edge_csr, \
+        shift
     from mgcfd_tpu_torch.kernels.fused_stage import (fused_stage,
                                                      fused_stage_plain)
     from mgcfd_tpu_torch.mesh.generate import generate_box_mesh
-    from mgcfd_tpu_torch.prep.csr import build_flux_csr
+    from mgcfd_tpu_torch.prep.csr import (build_flux_csr, build_prolong_csr,
+                                          build_restrict_csr)
     from mgcfd_tpu_torch.prep.shift import build_shift_plan
-    box = generate_box_mesh(*STRESS_BOX)
     cases = [(f"flagship L{i} one-span", lv, {"max_deltas": 1}, False)
              for i, lv in enumerate(mesh.levels)]
-    cases.append((f"box {'x'.join(map(str, STRESS_BOX))}", box, {}, True))
+    for dims in (STRESS_BOX, ODD_BOX):
+        cases.append((f"box {'x'.join(map(str, dims))}",
+                      generate_box_mesh(*dims), {}, True))
     cases += [(f"tet32 L{i}", lv, {"min_density": 0.0005}, True)
               for i, lv in enumerate(tmesh.levels)]
+    transfers = []
+    for i in range(tmesh.num_levels - 1):
+        fine, coarse = tmesh.levels[i], tmesh.levels[i + 1]
+        transfers += [
+            (f"tet32 L{i}", edge_csr.restrict, build_restrict_csr(
+                fine.mg_mapping, fine.num_nodes, coarse.num_nodes)[0]),
+            (f"tet32 L{i}", edge_csr.prolong,
+             build_prolong_csr(fine, coarse))]
     for dt in dtypes:
+        wsum = []
+        for label, kern, plan in transfers:
+            csr = DeviceCSR.from_plan(plan, dev, dt)
+            x = random_state(csr.num_cols, 34, dt, dev)
+            wsum.append(wsum_case(label, kern, csr, x, dt))
+        check_cases(wsum, dt)
         for label, lv, kw, with_csr in cases:
             n = lv.num_nodes
             nc = level_nc(lv, dt, dev)
@@ -310,6 +372,7 @@ def check_stage_shapes(mesh, tmesh, dtypes, dev) -> None:
                 f"(0 halo, 1 marched, 2 direct), H {sch.halo}, "
                 f"{sch.pencils} pencils x {sch.steps} steps, M "
                 f"{sch.chunk}, spill edges {plan.spill_a.size}")
+            check_span_kernels(sh, q, dt, label)
             hold_stage(f"shift.fused_stage+spill {label}",
                        shift.fused_stage, shift.shift_fused_stage_plain,
                        lambda x: (sh, nc, x, old, fac, spill), q, dt)
@@ -358,8 +421,18 @@ def check_csr_kernels(solvers) -> None:
         log(f"check fused_stage invalid count with a planted NaN, rho<0 "
             f"and E<0: kernel {k_inv}, plain {p_inv}")
         require(k_inv == p_inv > 0, "fused_stage invalid counts differ")
-        # every level: ragged last tiles
+        # every level: ragged last tiles; the wsum transfers of each level
         for lev, L in enumerate(solver.dmesh.levels):
+            if L.restrict_csr is not None:
+                xl = random_state(L.num_nodes, 50 + lev, dt, dev)
+                m = L.prolong_csr.num_cols
+                rl = random_state(m, 60 + lev, dt, dev) \
+                    - random_state(m, 70 + lev, dt, dev)
+                check_cases([
+                    wsum_case(f"L{lev}", edge_csr.restrict, L.restrict_csr,
+                              xl, dt),
+                    wsum_case(f"L{lev}", edge_csr.prolong, L.prolong_csr,
+                              rl, dt)], dt)
             ql = random_state(L.num_nodes, 40 + lev, dt, dev)
             oldl = ql + 1e-3 * random_state(L.num_nodes, 2, dt, dev)
             facl = t_step_factor(L, ql, False) / 3.0
@@ -397,11 +470,8 @@ def check_shift_kernels(solvers) -> None:
             k1, _ = shift.fused_stage(sh, L.nc, q, old, fac, spill)
             p1, _ = shift.shift_fused_stage_plain(sh, L.nc, q, old, fac,
                                                   spill)
+            check_span_kernels(sh, q, dt, f"L{lev} spans {sh.deltas}")
             check_cases([
-                (f"shift.flux L{lev} spans {sh.deltas}", shift.flux(sh, q),
-                 shift.shift_plain("flux", sh, q)),
-                (f"shift.rw L{lev}", shift.rw(sh, q),
-                 shift.shift_plain("rw", sh, q)),
                 (f"shift.fused_stage L{lev}", k0, p0),
                 (f"shift.fused_stage+spill L{lev}", k1, p1)], dt)
             require(int(k0_inv) == int(p0_inv) == 0,
@@ -502,6 +572,7 @@ def refuse_unknown_dtype(lib) -> None:
     import ctypes
     deltas = (ctypes.c_int64 * 1)(1)
     kinds = (ctypes.c_int64 * 1)(0)   # one halo span
+    shape = (ctypes.c_int64 * 2)()
     rcs = {
         "mgcfd_edge_csr": lib.mgcfd_edge_csr(7, 0, None, None, None, 0,
                                              None, None, 1, None, 1, None),
@@ -510,6 +581,15 @@ def refuse_unknown_dtype(lib) -> None:
             None),
         "mgcfd_shift_flux": lib.mgcfd_shift_flux(
             7, 0, ctypes.addressof(deltas), 1, None, None, None, 1, None),
+        "mgcfd_shift_flux_at": lib.mgcfd_shift_flux_at(
+            7, 0, 0, 0, ctypes.addressof(deltas), 1, None, None, None, 1,
+            None),
+        "mgcfd_shift_flux_shape": lib.mgcfd_shift_flux_shape(
+            7, 0, 1, 1, ctypes.addressof(shape)),
+        "mgcfd_wsum_at": lib.mgcfd_wsum_at(7, 0, 0, None, None, None, 0,
+                                           None, 1, None, 1, None),
+        "mgcfd_wsum_shape": lib.mgcfd_wsum_shape(7, 1, 1,
+                                                 ctypes.addressof(shape)),
         "mgcfd_shift_fused_stage": lib.mgcfd_shift_fused_stage(
             7, ctypes.addressof(deltas), ctypes.addressof(kinds), 1, 8, 1,
             None, None, None, None, None, None, None, None, 1, None),
@@ -580,6 +660,9 @@ def kernel_records(s_main, s_win, spill_csr, runs, card_label: str):
     sh = M0.shift
     D = len(sh.deltas)
     flops = FP64_FLOP_PER_S if dt == torch.float64 else FP32_FLOP_PER_S
+    # the launch floor: a one-element in-place add, timed as the kernels
+    one = torch.zeros(1, device=q.device)
+    floor_ms = device_ms(lambda: one.add_(1))
 
     def csr_bytes(csr, wrows):
         return 4 * (csr.num_rows + 1) + 4 * csr.num_entries \
@@ -663,14 +746,16 @@ def kernel_records(s_main, s_win, spill_csr, runs, card_label: str):
             "ms": device_ms(kfn), "plain_ms": device_ms(pfn),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms, "dtype": str(dt).split(".")[-1],
+            "library_ms": lib_ms, "floor_ms": floor_ms,
+            "dtype": str(dt).split(".")[-1],
             "path": run, "launches_per_cycle": pc[rname],
         }
         records.append(rec)
         log(f"time {rec['name']:29s} {rec['ms'] * 1e3:9.1f} us  plain "
             f"{rec['plain_ms'] * 1e3:9.1f} us  bound "
             f"{rec['bound_ms'] * 1e3:7.1f} us ({rec['bound_by']}, "
-            f"{nbytes / 1e6:.1f} MB)  library {lib_note}  launches per "
+            f"{nbytes / 1e6:.1f} MB)  floor {floor_ms * 1e3:.1f} us  "
+            f"library {lib_note}  launches per "
             f"cycle {pc[rname]:g} ({tag} {run} run)  [{card_label}]")
     return records
 

@@ -10,7 +10,8 @@ the box ('pallas'); --accumulate window profiles the CSR kernels there.
 Prints the wall time per cycle (host clock around cycles that end in a
 synchronize), the device-busy time per cycle (the sum of the CUDA kernels'
 device time: one stream, so kernels do not overlap), the device's idle
-share, and the kernels and host operations that take the most time.
+share, every kernel's device time, and the host operations that take the
+most time.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -61,8 +62,9 @@ def main(argv=None) -> int:
           f"cycles under the profiler")
     print(f"wall {wall:.3f} ms/cycle; device busy {busy:.3f} ms/cycle; "
           f"device idle share {1 - busy / wall:.3f}")
-    print("device time by kernel (us per cycle, launches per cycle):")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
+    print("device time by kernel, every kernel (us per cycle, launches "
+          "per cycle):")
+    for e in sorted(kernels, key=dev_us, reverse=True):
         print(f"  {dev_us(e) / args.cycles:10.1f}  "
               f"{e.count / args.cycles:6.1f}  {e.key[:90]}")
     print("host time by operation (self CPU us per cycle, calls per "

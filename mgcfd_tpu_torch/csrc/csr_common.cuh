@@ -12,7 +12,8 @@
 // Pallas kernels' bf16 branches: each value is widened exactly on load
 // (__bfloat162float) and each result rounded once, to nearest even, on
 // store (__float2bfloat16_rn, what astype(bfloat16) does). Rows are
-// 2-byte aligned at bfloat16, so every load is a scalar load.
+// 2-byte aligned at bfloat16: the kernels take vector loads only where
+// they check the alignment (window.cuh, edge_csr.cu's chunked loads).
 #pragma once
 
 #include <cstdint>
@@ -71,6 +72,23 @@ constexpr double kGamma = 1.4;
 // the reference's smoothing coefficient, 0.2f widened to double
 constexpr double kSmoothing = 0.20000000298023223876953125;
 constexpr int kThreads = 256;
+// the kernels that give each of the five channels a thread of its own
+// (shift_flux.cu's split rw, edge_csr.cu's wsum) take kChannelLanes rows
+// or nodes a block, channel-major: threads [c * kChannelLanes,
+// (c + 1) * kChannelLanes) are channel c, two whole warps, so a warp
+// reads one channel of 32 neighbouring rows and the block's five channels
+// of a row share the row's indices and weights through L1
+constexpr int kChannelLanes = 64;
+constexpr int kChannelThreads = 5 * kChannelLanes;
+// levels below kThinBelow nodes (or rows) leave the card short of
+// threads: there the per-channel kernels give each (node or row, channel)
+// a thread. At fp64, levels of kFullLevel nodes (or rows) or more fill the
+// card without more loads in flight per thread: there the unrolled span
+// loop and the batched loads cost more in registers than they hide.
+// Both chosen on the H100 from sweeps of the box flagship's levels
+// (bench/kernel_ab.py --shapes).
+constexpr int64_t kThinBelow = 16384;
+constexpr int64_t kFullLevel = 131072;
 
 // conserved channels plus the primitives the flux needs
 template <typename T>
@@ -200,8 +218,8 @@ __device__ __forceinline__ void add_block_count(int bad,
   }
 }
 
-inline unsigned blocks_for(int64_t rows) {
-  return static_cast<unsigned>((rows + kThreads - 1) / kThreads);
+inline unsigned blocks_for(int64_t rows, int per_block = kThreads) {
+  return static_cast<unsigned>((rows + per_block - 1) / per_block);
 }
 
 }  // namespace mgcfd

@@ -66,16 +66,29 @@ __device__ __forceinline__ void edge_value(const State8<T>& a,
   }
 }
 
+// the span loop: over sp.count spans, or over exactly K spans unrolled
+// when K > 0, so that the loads of every span can be in flight together
+template <int K, typename Body>
+__device__ __forceinline__ void for_spans(const Spans& sp, Body&& body) {
+  if constexpr (K > 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) body(k);
+  } else {
+    for (int64_t k = 0; k < sp.count; ++k) body(k);
+  }
+}
+
 // acc = node i's internal flux (or its rw twin) over every span, in the
-// compute type T (float32 at bfloat16 until the caller's one store)
-template <typename S, bool RW, typename T = compute_t<S>>
+// compute type T (float32 at bfloat16 until the caller's one store); the
+// span loop unrolled for a plan of exactly K spans (K = 0: a loop)
+template <typename S, bool RW, int K = 0, typename T = compute_t<S>>
 __device__ __forceinline__ void span_sum(const Spans& sp,
                                          const S* __restrict__ w,
                                          const S* __restrict__ q, int64_t n,
                                          int64_t i, const State8<T>& qi,
                                          T acc[5]) {
   for (int c = 0; c < 5; ++c) acc[c] = T(0);
-  for (int64_t k = 0; k < sp.count; ++k) {
+  for_spans<K>(sp, [&](int64_t k) {
     const int64_t d = sp.d[k];
     const S* wk = w + k * 4 * n;
     T v[5];
@@ -83,7 +96,7 @@ __device__ __forceinline__ void span_sum(const Spans& sp,
     for (int c = 0; c < 5; ++c) acc[c] += v[c];
     edge_value<S, RW>(node_or_quiescent(q, n, i - d), qi, wk, n, i - d, v);
     for (int c = 0; c < 5; ++c) acc[c] -= v[c];
-  }
+  });
 }
 
 inline int make_spans(const int64_t* deltas, int64_t count, Spans* sp) {

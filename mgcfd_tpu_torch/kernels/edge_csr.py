@@ -2,8 +2,11 @@
 csrc/edge_csr.cu, its wrapper and its plain PyTorch version.
 
 Replaces mgcfd_tpu/pallas/flux_window.py::_window_kernel (flux, rw and
-wsum modes). The wrapper launches the kernel for CUDA tensors and takes
-the plain version only for tensors on the CPU; anything else raises.
+wsum modes). In wsum mode the kernel gives each (row, channel) or each
+row a thread and loads a row's entries plain, chunked or batched, as
+the C entry point chooses for the CSR; wsum_shape below mirrors that.
+The wrapper launches the kernel for CUDA tensors and takes the plain
+version only for tensors on the CPU; anything else raises.
 Each role on the solver's path has its own wrapper instance with its own
 launch count (``launches``, a plain int added to at each kernel launch):
 ``flux``, ``rw``, ``restrict`` and ``prolong``.
@@ -15,6 +18,7 @@ compute in float32 and round once, to nearest even, on store.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -25,6 +29,14 @@ from ..prep.csr import CSRPlan
 from . import build
 
 MODES = {"flux": 0, "rw": 1, "wsum": 2}
+# levels below THIN_BELOW nodes or rows get a thread per (node or row,
+# channel); at fp64 levels of FULL_LEVEL or more skip the extra loads in
+# flight (csrc/csr_common.cuh kThinBelow, kFullLevel)
+THIN_BELOW = 16384
+FULL_LEVEL = 131072
+# how a wsum thread loads its row's entries (csrc/edge_csr.cu WsumLoads)
+PLAIN, CHUNKED, BATCHED = 0, 1, 2
+CHUNK = 4   # kChunk
 _MIN_WEIGHT_ROWS = {"flux": 4, "rw": 3, "wsum": 1}
 
 
@@ -58,6 +70,29 @@ class DeviceCSR:
                    col=put(plan.col, torch.int32),
                    owner=put(plan.owner, torch.int64),
                    w=put(plan.w, dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class WsumShape:
+    """How the wsum kernel covers a CSR: a thread per (row, channel) with
+    ``split``, else per row; ``loads`` PLAIN, CHUNKED or BATCHED."""
+
+    split: bool
+    loads: int
+
+
+def wsum_shape(num_rows: int, num_entries: int,
+               dtype: torch.dtype) -> WsumShape:
+    """The wsum kernel's shape: long rows (mean CHUNK entries or more, the
+    restriction) per (row, channel) with chunked loads; short rows (the
+    prolongation) batched, per (row, channel) below THIN_BELOW rows, and at
+    fp64 from FULL_LEVEL rows on per row with plain loads. The mirror of
+    the C entry point's choose_wsum."""
+    if num_entries >= CHUNK * num_rows:
+        return WsumShape(split=True, loads=CHUNKED)
+    full64 = dtype == torch.float64 and num_rows >= FULL_LEVEL
+    return WsumShape(split=num_rows < THIN_BELOW,
+                     loads=PLAIN if full64 else BATCHED)
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -179,6 +214,34 @@ class EdgeCSR:
         build.check(rc, self.name)
         self.launches += 1
         return out
+
+    def at(self, csr: DeviceCSR, x: torch.Tensor, shape: WsumShape):
+        """wsum mode at a given shape, for timing shapes."""
+        if self.mode != "wsum":
+            raise ValueError(f"{self.name}: shapes are for wsum mode")
+        check_operands(csr, x, "wsum")
+        if not _on_card(x):
+            return edge_csr_plain("wsum", csr, x)
+        out = torch.empty((5, csr.num_rows), dtype=x.dtype, device=x.device)
+        rc = build.library().mgcfd_wsum_at(
+            build.dtype_code(x), int(shape.split), shape.loads,
+            csr.row_ptr.data_ptr(),
+            csr.col.data_ptr(), csr.w.data_ptr(), csr.num_entries,
+            x.data_ptr(), csr.num_cols, out.data_ptr(), csr.num_rows,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(rc, self.name)
+        self.launches += 1
+        return out
+
+    def shape(self, csr: DeviceCSR) -> WsumShape:
+        """The shape the C entry point picks for this CSR in wsum mode;
+        launches nothing."""
+        got = (ctypes.c_int64 * 2)()
+        rc = build.library().mgcfd_wsum_shape(
+            build.DTYPE_CODES[csr.w.dtype], csr.num_rows, csr.num_entries,
+            ctypes.addressof(got))
+        build.check(rc, self.name)
+        return WsumShape(split=bool(got[0]), loads=int(got[1]))
 
 
 flux = EdgeCSR("edge_csr.flux", "flux")

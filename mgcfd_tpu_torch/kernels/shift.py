@@ -8,12 +8,15 @@ Replace mgcfd_tpu/pallas/flux_shift.py::_kernel (both modes) and
     val_d(j) = edge(q[j], q[j + d], w_d[j]),
 where an endpoint outside [0, N) is quiescent gas (rho = 1, momentum 0,
 E = 1) with zero weight, as the TPU kernel masks its lanes (the plain
-versions below spell this out). The fused stage's kernel tiles the nodes
-and shares their states through shared memory; span_schedule below
-sorts a plan's spans for it. The wrappers launch the kernels for CUDA
-tensors and take the plain versions only for tensors on the CPU; anything
-else raises. Each role has its own wrapper instance with its own launch
-count (``launches``): ``flux``, ``rw`` and ``fused_stage``.
+versions below spell this out). The flux kernel unrolls the span loop
+of short plans and in rw mode gives each (node, channel) a thread on
+thin levels; launch_shape below mirrors its C entry point's choice. The
+fused stage's kernel tiles the nodes and shares their states through
+shared memory; span_schedule below sorts a plan's spans for it. The
+wrappers launch the kernels for CUDA tensors and take the plain versions
+only for tensors on the CPU; anything else raises. Each role has its own
+wrapper instance with its own launch count (``launches``): ``flux``,
+``rw`` and ``fused_stage``.
 
 At bfloat16 (flux_shift.py:163-201 and :397-431) the kernels and their
 plain versions load bf16, compute in float32 and round once on store;
@@ -29,7 +32,8 @@ import torch
 
 from ..prep.shift import ShiftPlan
 from . import build, edge_csr
-from .edge_csr import STORAGE_DTYPES, complete8, compute_dtype, flux_math
+from .edge_csr import (FULL_LEVEL, STORAGE_DTYPES, THIN_BELOW, complete8,
+                       compute_dtype, flux_math)
 from .fused_stage import bw_flux, invalid_count
 
 MAX_SPANS = 16   # kMaxSpans in csrc/shift_common.cuh
@@ -46,6 +50,33 @@ HALO_ALIGN = 8        # H is a multiple of 8, so vector loads stay aligned
 TARGET_BLOCKS = {torch.float32: 528, torch.bfloat16: 528,
                  torch.float64: 1056}
 HALO, MARCHED, DIRECT = 0, 1, 2   # span kinds (SpanKind)
+
+# the flux kernel's launch shape (csrc/shift_flux.cu choose_shape)
+MAX_UNROLLED = 4        # kMaxUnrolled: plans of at most this many spans
+CHANNEL_LANES = 64      # kChannelLanes (csrc/csr_common.cuh)
+
+
+@dataclasses.dataclass(frozen=True)
+class FluxShape:
+    """How the flux kernel covers N nodes: one node a thread, or in rw
+    mode with ``split`` one (node, channel) a thread; with ``unroll`` the
+    span loop unrolled (plans of at most MAX_UNROLLED spans)."""
+
+    split: bool
+    unroll: bool
+
+
+def launch_shape(mode: str, dtype: torch.dtype, num_nodes: int,
+                 num_spans: int) -> FluxShape:
+    """The flux kernel's shape for N nodes of a storage dtype and a plan
+    of num_spans spans: rw mode splits the channels below THIN_BELOW
+    nodes; the span loop is unrolled for plans of at most MAX_UNROLLED
+    spans, but not in rw mode at fp64 from FULL_LEVEL nodes on. The
+    mirror of the C entry point's choose_shape."""
+    rw = mode == "rw"
+    full64 = dtype == torch.float64 and num_nodes >= FULL_LEVEL
+    return FluxShape(split=rw and num_nodes < THIN_BELOW,
+                     unroll=num_spans <= MAX_UNROLLED and not (rw and full64))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,20 +236,47 @@ class ShiftFlux:
         self.launches = 0
 
     def __call__(self, sh: DeviceShift, q: torch.Tensor) -> torch.Tensor:
-        """(5, N) state -> (5, N) internal flux (or its rw twin)."""
+        """(5, N) state -> (5, N) internal flux (or its rw twin), at the
+        shape the C entry point picks."""
+        return self._launch(sh, q, None)
+
+    def at(self, sh: DeviceShift, q: torch.Tensor,
+           shape: FluxShape) -> torch.Tensor:
+        """The same at a given shape, for timing shapes (the arrays must
+        take it)."""
+        return self._launch(sh, q, shape)
+
+    def _launch(self, sh, q, shape):
         _check(sh, q, self.name)
         if not edge_csr._on_card(q):
             return shift_plain(self.mode, sh, q)
         out = torch.empty_like(q)
         deltas = _c_int64s(sh.deltas)
-        rc = build.library().mgcfd_shift_flux(
-            build.dtype_code(q), MODES[self.mode],
-            ctypes.addressof(deltas), len(sh.deltas), sh.w.data_ptr(),
-            q.data_ptr(), out.data_ptr(), sh.num_nodes,
-            torch.cuda.current_stream(q.device).cuda_stream)
+        lib = build.library()
+        operands = (ctypes.addressof(deltas), len(sh.deltas),
+                    sh.w.data_ptr(), q.data_ptr(), out.data_ptr(),
+                    sh.num_nodes,
+                    torch.cuda.current_stream(q.device).cuda_stream)
+        if shape is None:
+            rc = lib.mgcfd_shift_flux(build.dtype_code(q), MODES[self.mode],
+                                      *operands)
+        else:
+            rc = lib.mgcfd_shift_flux_at(build.dtype_code(q),
+                                         MODES[self.mode], int(shape.split),
+                                         int(shape.unroll), *operands)
         build.check(rc, self.name)
         self.launches += 1
         return out
+
+    def shape(self, sh: DeviceShift) -> FluxShape:
+        """The shape the C entry point picks for this plan; launches
+        nothing."""
+        got = (ctypes.c_int64 * 2)()
+        rc = build.library().mgcfd_shift_flux_shape(
+            build.DTYPE_CODES[sh.w.dtype], MODES[self.mode], sh.num_nodes,
+            len(sh.deltas), ctypes.addressof(got))
+        build.check(rc, self.name)
+        return FluxShape(split=bool(got[0]), unroll=bool(got[1]))
 
 
 class ShiftFusedStage:
