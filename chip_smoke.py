@@ -7,7 +7,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 What it does, in order, printing each step with the elapsed seconds:
   1. arms a watchdog that dumps every thread's traceback and exits
-     non-zero after 8 minutes (the run takes about one);
+     non-zero after 8 minutes, and starts a child process that generates
+     the tet flagship (68x64x70, 4 levels), writes it as the
+     reference's files and parses them once, which fills their npz
+     cache, while the box phases run (bench/tet_flagship.py, into a
+     temporary directory removed at the end);
   2. prints the card (torch and nvidia-smi);
   3. builds the CUDA kernels with one nvcc call, and checks that each C
      entry point refuses a dtype code it does not know;
@@ -38,18 +42,42 @@ What it does, in order, printing each step with the elapsed seconds:
      and 'window': fp64 kernels against fp64 plain, the fp32 kernel RMS
      against the fp64 RMS, and bf16 through the kernels and through the
      plain path against fp64 (per channel and per-cycle RMS);
-  8. runs the box with every shift plan cut to one span, so that two
+  8. runs the box through run_batched(23, 10), two replays of a CUDA
+     graph of 10 cycles and a tail of 3 through run, on 'pallas' at fp32
+     and bf16 and on 'window' at fp32: every level's state bit-equal to
+     run(23) from the same state, the RMS equal, the launches equal; then
+     a NaN planted with load_state must raise FloatingPointError;
+  9. writes the box flagship as the reference's files (.dat, .coords,
+     .mg, input.dat), reads them back cold and through the npz cache
+     (arrays equal to the generated mesh's), and runs them through `auto`
+     (the RMS equal to the generated mesh's), with the host seconds;
+ 10. runs the box with every shift plan cut to one span, so that two
      thirds of its edges are spill edges: their flux goes through the
      edge_csr flux kernel into the fused stage's spill operand; fp64
      against the plain path, and bf16, launches counted;
-  9. runs a 32^3, 3-level tet hierarchy, which `auto` sends to 'window',
-     through both paths at fp64, through `auto` at bf16, and through
-     'pallas' at fp64 (span plans that cover little, spill edges);
- 10. times each V-cycle (fp32 beside bf16) and each kernel at fp32, fp64
-     and bf16 beside its bound, its plain version, a library call where
+ 11. writes a 32^3, 3-level tet hierarchy as files, loads and renumbers
+     it (RCM), and runs it through the CLI (-i ... --renumber) and, where
+     `auto` sends it to 'window', through both paths at fp64, through
+     `auto` at bf16, and through 'pallas' at fp64 (span plans that cover
+     little, spill edges);
+ 12. loads the tet flagship that the child wrote, through the npz
+     cache, and renumbers it (RCM), the CLI's -i ... --renumber path;
+     then fp64 through `auto`
+     ('window') against fp64 plain, and fp32 and bf16 through run_batched
+     against run as in 8;
+ 13. times each V-cycle (fp32 beside bf16) and each kernel at fp32, fp64
+     and bf16 (each held to its plain version at the tolerance of 4
+     first) beside its bound, its plain version, a library call where
      one computes the same function, and the launch floor (a one-element
-     in-place add, timed the same way);
- 11. prints the card's name and power limit, one JSON line of kernel
+     in-place add, timed the same way); the tet flagship's level-0 kernels
+     in its RCM order and in the generator's shuffled order; and ms per
+     cycle through run_batched beside run, with device busy per cycle
+     from torch.profiler, for the box ('pallas' fp32 and bf16, 'window'
+     fp32) and the tet flagship ('window' fp32, RCM and shuffled); the
+     profiler's count of each kernel family's launches must equal the
+     launch counts, in one replay (the capture's, added by run_batched)
+     and in the cycles of run (the wrappers');
+ 14. prints the card's name and power limit, one JSON line of kernel
      records, and last the JSON line {"ok": true, "device": {...}}.
 Any failed check raises, and the exit code is then non-zero. Without a
 CUDA device, or without the package beside this file, it exits non-zero
@@ -62,8 +90,10 @@ import faulthandler
 import functools
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -150,6 +180,24 @@ WANT_UNFUSED = {"shift.flux": 18, "shift.rw": 18, **MG}
 TOLS = {"torch.float64": TOL_FP64, "torch.float32": TOL_FP32}
 TAGS = {"torch.float64": "fp64", "torch.float32": "fp32",
         "torch.bfloat16": "bf16"}
+# run_batched against run: 23 cycles at K = 10 are two graph replays and a
+# tail of 3 cycles through run
+BATCH_CYCLES = 23
+BATCH_K = 10
+# the kernel family of each hand-written kernel's symbol, as the profiler
+# names it (mgcfd::<symbol><...>), and of each launch counter
+SYMBOL_FAMILY = {"edge_csr_kernel": "edge_csr", "wsum_row_kernel": "wsum",
+                 "wsum_split_kernel": "wsum",
+                 "fused_stage_kernel": "fused_stage",
+                 "shift_flux_kernel": "shift_flux",
+                 "shift_rw_split_kernel": "shift_flux",
+                 "shift_fused_stage_kernel": "shift_fused_stage"}
+COUNTER_FAMILY = {"edge_csr.flux": "edge_csr", "edge_csr.rw": "edge_csr",
+                  "edge_csr.wsum.restrict": "wsum",
+                  "edge_csr.wsum.prolong": "wsum",
+                  "fused_stage": "fused_stage", "shift.flux": "shift_flux",
+                  "shift.rw": "shift_flux",
+                  "shift.fused_stage": "shift_fused_stage"}
 
 
 def log(msg: str) -> None:
@@ -566,6 +614,164 @@ def timed_run(solver, what: str):
         start.elapsed_time(end) / 10, v2
 
 
+def same_arrays(got, want, what: str) -> None:
+    """Two hierarchies hold equal arrays on every level (a round trip
+    through %.17e text is exact)."""
+    import numpy as np
+    from mgcfd_tpu_torch.core.types import LEVEL_ARRAYS
+    require(got.variant == want.variant
+            and got.num_levels == want.num_levels, f"{what}: variant or "
+            "level count differs")
+    for lev, (g, w) in enumerate(zip(got.levels, want.levels)):
+        for f in LEVEL_ARRAYS:
+            a, b = getattr(g, f), getattr(w, f)
+            require((a is None and b is None) or (
+                a is not None and b is not None and np.array_equal(a, b)),
+                f"{what}: level {lev} {f} differs")
+
+
+def counted_batched(solver, cycles: int, k: int, what: str):
+    """counted_run through run_batched(cycles, k): every launch count set
+    to 0 just before and read just after (a replay adds the launches its
+    capture recorded; the capture's warm-up adds none)."""
+    from mgcfd_tpu_torch import kernels
+    kernels.reset_launch_counts()
+    solver.run_batched(cycles, k)
+    counts = kernels.launch_counts()
+    log(f"{what}: {cycles} cycles through run_batched (K = {k}), launches "
+        f"{counts}")
+    return counts, per_cycle(counts, cycles)
+
+
+def batched_equals_run(make, what: str, want: dict | None = None,
+                       exact: bool = True) -> None:
+    """run_batched(BATCH_CYCLES, BATCH_K) (two graph replays and a tail of
+    three through run) against run(BATCH_CYCLES), each on a solver from
+    make() from the same state: every level's variables and residuals
+    bit-equal, the RMS history equal, the launches equal (and, with
+    `want`, those per cycle of the path). Without `exact` (the plain
+    paths, whose index_add_ sums with atomics on the card) the variables
+    and RMS within identify_differences instead. Then a state with a
+    planted NaN, installed with load_state, must make run_batched raise
+    FloatingPointError naming its first batch."""
+    import numpy as np
+    import torch
+    a, b = make(), make()
+    counts_a, _ = counted_run(a, BATCH_CYCLES, f"{what} run", want)
+    counts_b, pc_b = counted_batched(b, BATCH_CYCLES, BATCH_K, what)
+    require(counts_a == counts_b, f"{what}: run_batched launched {counts_b}, "
+            f"run {counts_a}")
+    require(a.completed_cycles == b.completed_cycles == BATCH_CYCLES
+            and len(b.rms_history) == BATCH_CYCLES,
+            f"{what}: cycle counts differ")
+    if exact:
+        for key in ("variables", "residuals"):
+            for lev, (x, y) in enumerate(zip(a.state[key], b.state[key])):
+                require(torch.equal(x, y), f"{what}: {key} of level {lev} "
+                        "differ between run_batched and run")
+        require(a.rms_history == b.rms_history, f"{what}: RMS differs")
+        how = "bit for bit on every level, RMS equal"
+    else:
+        same_as_plain(b, a, a.mesh, f"{what}: run_batched against run")
+        how = "within identify_differences"
+    healthy(b, f"{what} run_batched")
+    log(f"{what}: run_batched({BATCH_CYCLES}, {BATCH_K}) == run("
+        f"{BATCH_CYCLES}) {how}, launches per cycle {pc_b}")
+    bad = {"variables": [b.variables(lev) for lev in
+                         range(len(b.dmesh.levels))],
+           "residuals": [np.zeros_like(b.variables(lev)) for lev in
+                         range(len(b.dmesh.levels))]}
+    bad["variables"][0][len(bad["variables"][0]) // 2, 0] = np.nan
+    b.load_state(bad)
+    try:
+        b.run_batched(BATCH_K, BATCH_K)
+    except FloatingPointError as e:
+        require(f"within cycles 1..{BATCH_K}" in str(e),
+                f"{what}: the NaN guard named no batch: {e}")
+        log(f"{what}: planted NaN -> FloatingPointError: {e}")
+    else:
+        raise CheckFailed(f"{what}: run_batched did not raise on a NaN")
+
+
+def by_family(counts: dict) -> dict:
+    """Launch counts {counter: n} summed by kernel family."""
+    out = {}
+    for counter, n in counts.items():
+        fam = COUNTER_FAMILY[counter]
+        out[fam] = out.get(fam, 0) + n
+    return {f: n for f, n in out.items() if n}
+
+
+def profiled_launches(kernel_events) -> dict:
+    """The launches of each hand-written kernel family that torch.profiler
+    saw: its CUDA kernel events, counted by symbol."""
+    import re
+    out = {}
+    for e in kernel_events:
+        m = re.search(r"mgcfd::(\w+)<", e.key)
+        if m and m.group(1) in SYMBOL_FAMILY:
+            fam = SYMBOL_FAMILY[m.group(1)]
+            out[fam] = out.get(fam, 0) + e.count
+    return out
+
+
+def batched_timing(solver, what: str, card_label: str) -> dict:
+    """ms per cycle through run_batched (K = BATCH_K; CUDA events over two
+    replays after a warm one) beside run (10 cycles after 2), and device
+    busy per cycle from torch.profiler over one replay and over BATCH_K
+    cycles of run. The profiler's kernel events also give an independent
+    count of the launches, which must equal the launch counts each kernel
+    family's wrappers report for the same span: in the replay the counts
+    that the graph's capture recorded and run_batched adds, in the cycles
+    of run the wrappers' own."""
+    import torch
+    from mgcfd_tpu_torch import kernels
+    from mgcfd_tpu_torch.bench.profile_cycle import profile_cycles
+    k = BATCH_K
+
+    def events_ms(fn, cycles):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / cycles
+
+    solver.run(2)
+    run_ms = events_ms(lambda: solver.run(10), 10)
+    solver.run_batched(k, k)
+    graph_ms = events_ms(lambda: solver.run_batched(2 * k, k), 2 * k)
+    def profiled(fn, span: str):
+        kernels.reset_launch_counts()
+        wall, busy, kern, _ = profile_cycles(fn, k)
+        seen = profiled_launches(kern)
+        counted = by_family(kernels.launch_counts())
+        require(seen == counted, f"{what}: in {span} the profiler saw "
+                f"launches {seen}, the counts say {counted}")
+        return wall, busy, seen
+
+    wall_g, busy_g, seen = profiled(lambda: solver.run_batched(k, k),
+                                    "one replay")
+    wall_r, busy_r, seen_r = profiled(lambda: solver.run(k),
+                                      f"{k} cycles of run")
+    rec = {"cell": what, "run_ms": run_ms, "run_batched_ms": graph_ms,
+           "busy_ms_graph": busy_g, "idle_graph": 1 - busy_g / wall_g,
+           "wall_ms_graph_profiled": wall_g, "busy_ms_run": busy_r,
+           "idle_run": 1 - busy_r / wall_r, "wall_ms_run_profiled": wall_r}
+    log(f"timing {what}: run_batched (K = {k}) {graph_ms:.3f} ms/cycle, "
+        f"run {run_ms:.3f} ms/cycle (CUDA events); one replay under the "
+        f"profiler: busy {busy_g:.3f} ms/cycle of {wall_g:.3f}, idle share "
+        f"{rec['idle_graph']:.3f}; run under the profiler: busy "
+        f"{busy_r:.3f} of {wall_r:.3f}, idle {rec['idle_run']:.3f}; "
+        f"launches by family, profiler == counts: one replay {seen}, "
+        f"{k} cycles of run {seen_r} "
+        f"[{card_label}]")
+    healthy(solver, what)
+    return rec
+
+
 def refuse_unknown_dtype(lib) -> None:
     """Every C entry point returns nonzero for a dtype code it does not
     know (here 7), before it reads any pointer or launches anything."""
@@ -636,99 +842,109 @@ def bf16_tracks_fp64(s16, s64, what: str) -> None:
     require(max(rms) <= BF16_RMS_TOL, f"{what}: RMS {rms}")
 
 
-def kernel_records(s_main, s_win, spill_csr, runs, card_label: str):
-    """Each kernel's record at the level-0 shapes and dtype of s_main
-    ('pallas') and s_win ('window'): device time beside the bound for
-    this dtype's bytes and operations, its plain version's time and a
-    library call's where one PyTorch call computes the same function.
-    runs: path -> (launch counts, per cycle) of this dtype's runs; fp32
-    records keep their names, the others are suffixed with the dtype."""
+def launch_floor_ms(dev) -> float:
+    """The launch floor: a one-element in-place add, timed as the
+    kernels are."""
     import torch
-    from mgcfd_tpu_torch.kernels import edge_csr, shift
-    from mgcfd_tpu_torch.kernels.fused_stage import (fused_stage,
-                                                     fused_stage_plain)
-    dt = s_main.dtype
+    one = torch.zeros(1, device=dev)
+    return device_ms(lambda: one.add_(1))
+
+
+def csr_bytes(csr, wrows: int, sz: int) -> int:
+    """Bytes of a CSR's row_ptr, col and `wrows` weight rows."""
+    return 4 * (csr.num_rows + 1) + 4 * csr.num_entries \
+        + sz * wrows * csr.num_entries
+
+
+def sparse_csr(csr):
+    """The CSR's first weight row as a torch sparse CSR matrix."""
+    import torch
+    return torch.sparse_csr_tensor(
+        csr.row_ptr, csr.col, csr.w[0].contiguous(),
+        (csr.num_rows, csr.num_cols), check_invariants=True)
+
+
+def affine_rw(rows, cols, vals, const, n: int, q):
+    """The rw twins are affine in q: out^T = C + M q^T with M sparse (the
+    (row, col, value) triplets given, duplicates summed) and C (n, 5).
+    Returns the one PyTorch call that computes it, torch.sparse.addmm on
+    q^T, with M, C and q^T made here, outside the call."""
+    import numpy as np
+    import torch
+    dev, dt = q.device, q.dtype
+    m = torch.sparse_coo_tensor(
+        torch.as_tensor(np.stack([rows, cols])),
+        torch.as_tensor(vals), (n, n)).coalesce().to(dev, dt) \
+        .to_sparse_csr()
+    c = torch.as_tensor(const).to(dev, dt)
+    qt = q.T.contiguous()
+    return lambda: torch.sparse.addmm(c, m, qt)
+
+
+def csr_rw_library(csr, q):
+    """edge_csr's rw mode as one library call: row i sums q_i + q_j + w0 +
+    w1 + w2 over its entries, so M = adjacency + diag(row length) and C_i
+    = the row's weight sums."""
+    import numpy as np
+    owner = csr.owner.cpu().numpy()
+    col = csr.col.cpu().numpy().astype(np.int64)
+    n = csr.num_rows
+    deg = np.bincount(owner, minlength=n).astype(np.float64)
+    wsum = csr.w[:3].double().sum(dim=0).cpu().numpy()
+    const = np.zeros((n, 5))
+    const += np.bincount(owner, weights=wsum, minlength=n)[:, None]
+    idx = np.arange(n)
+    return affine_rw(np.concatenate([owner, idx]), np.concatenate([col, idx]),
+                     np.concatenate([np.ones(col.size), deg]), const, n, q)
+
+
+def shift_rw_library(sh, q):
+    """shift's rw mode as one library call: per span d, node i adds
+    val_d(i) - val_d(i - d) with val_d(j) = q_j + q_{j+d} + S_d(j), so the
+    q_i terms cancel: M has +1 at (i, i + d) and -1 at (i, i - d) where
+    those lie in [0, N), and C holds the weight sums S and the quiescent
+    state (rho = 1, E = 1) that stands in for an end outside [0, N)."""
+    import numpy as np
+    n = sh.num_nodes
+    quiet = np.array([1.0, 0.0, 0.0, 0.0, 1.0])
+    w = sh.w.double().cpu().numpy()
+    rows, cols, vals = [], [], []
+    const = np.zeros((n, 5))
+    idx = np.arange(n)
+    for k, d in enumerate(sh.deltas):
+        s = w[k, :3].sum(axis=0)
+        hi, lo = idx[idx + d < n], idx[idx >= d]
+        rows += [hi, lo]
+        cols += [hi + d, lo - d]
+        vals += [np.ones(hi.size), -np.ones(lo.size)]
+        const[idx + d >= n] += quiet
+        const[idx < d] -= quiet
+        const[:, :] += s[:, None]
+        const[lo] -= s[lo - d][:, None]
+    return affine_rw(np.concatenate(rows), np.concatenate(cols),
+                     np.concatenate(vals), const, n, q)
+
+
+def time_rows(rows, runs, dt, floor_ms: float, card_label: str,
+              suffix: str = ""):
+    """Time each row (name, which is also its launch counter, kernel
+    family, path whose run gives the launches, kernel fn, plain fn, library
+    fn or None, bytes, operations) as one record, after holding the kernel
+    to its plain version on the same inputs (check_cases): device time
+    beside the bound for this dtype's bytes and operations, the plain
+    version's time and the library call's. runs: path -> (launch counts, per cycle).
+    Record names take `suffix`, and a dtype other than fp32 as a further
+    suffix."""
+    import torch
     tag = TAGS[str(dt)]
-    M0 = s_main.dmesh.levels[0]
-    W0, W1 = s_win.dmesh.levels[0], s_win.dmesh.levels[1]
-    q = s_main.state["variables"][0]
-    old = q + 1e-6 * q
-    fac = torch.full_like(M0.volumes, 1e-3)
-    res1 = s_main.state["residuals"][1]
-    sz = q.element_size()
-    n0, n1 = M0.num_nodes, W1.num_nodes
-    sh = M0.shift
-    D = len(sh.deltas)
     flops = FP64_FLOP_PER_S if dt == torch.float64 else FP32_FLOP_PER_S
-    # the launch floor: a one-element in-place add, timed as the kernels
-    one = torch.zeros(1, device=q.device)
-    floor_ms = device_ms(lambda: one.add_(1))
-
-    def csr_bytes(csr, wrows):
-        return 4 * (csr.num_rows + 1) + 4 * csr.num_entries \
-            + sz * wrows * csr.num_entries
-
-    def sparse(csr):
-        return torch.sparse_csr_tensor(
-            csr.row_ptr, csr.col, csr.w[0].contiguous(),
-            (csr.num_rows, csr.num_cols), check_invariants=True)
-
-    xf_t = q.T.contiguous()
-    rc_t = res1.T.contiguous()
-    sp_r, sp_p = sparse(W0.restrict_csr), sparse(W0.prolong_csr)
-    plain = edge_csr.edge_csr_plain
-    # the spill edges of the one-span level 0, in this dtype
-    spill = dataclasses.replace(spill_csr, w=spill_csr.w.to(dt))
-    # name, kernel family, path whose run gives the launches, kernel fn,
-    # plain fn, library fn, bytes, operations
-    rows = [
-        ("shift.fused_stage", "shift_fused_stage", "main",
-         lambda: shift.fused_stage(sh, M0.nc, q, old, fac)[0],
-         lambda: shift.shift_fused_stage_plain(sh, M0.nc, q, old, fac)[0],
-         None, sz * n0 * (5 + 4 * D + 5 + 1 + 11 + 5) + 4,
-         (SHIFT_FLUX_OPS_PER_SPAN_ROW * D + FLUX_OPS_PER_ROW
-          + FUSED_EXTRA_OPS_PER_ROW) * n0),
-        ("shift.rw", "shift_flux", "main", lambda: shift.rw(sh, q),
-         lambda: shift.shift_plain("rw", sh, q), None,
-         sz * n0 * (5 + 3 * D + 5), SHIFT_RW_OPS_PER_SPAN_ROW * D * n0),
-        ("shift.flux", "shift_flux", "unfused", lambda: shift.flux(sh, q),
-         lambda: shift.shift_plain("flux", sh, q), None,
-         sz * n0 * (5 + 4 * D + 5),
-         (SHIFT_FLUX_OPS_PER_SPAN_ROW * D + FLUX_OPS_PER_ROW) * n0),
-        ("edge_csr.wsum.restrict", "edge_csr", "main",
-         lambda: edge_csr.restrict(W0.restrict_csr, q),
-         lambda: plain("wsum", W0.restrict_csr, q),
-         lambda: torch.sparse.mm(sp_r, xf_t),
-         csr_bytes(W0.restrict_csr, 1) + sz * 5 * (n0 + n1),
-         WSUM_OPS_PER_ENTRY * W0.restrict_csr.num_entries),
-        ("edge_csr.wsum.prolong", "edge_csr", "main",
-         lambda: edge_csr.prolong(W0.prolong_csr, res1),
-         lambda: plain("wsum", W0.prolong_csr, res1),
-         lambda: torch.sparse.mm(sp_p, rc_t),
-         csr_bytes(W0.prolong_csr, 1) + sz * 5 * (n1 + n0),
-         WSUM_OPS_PER_ENTRY * W0.prolong_csr.num_entries),
-        ("fused_stage", "fused_stage", "window",
-         lambda: fused_stage(W0.csr, W0.nc, q, old, fac)[0],
-         lambda: fused_stage_plain(W0.csr, W0.nc, q, old, fac)[0], None,
-         csr_bytes(W0.csr, 4) + sz * n0 * (5 + 5 + 1 + 11 + 5) + 4,
-         FLUX_OPS_PER_ENTRY * W0.csr.num_entries
-         + (FLUX_OPS_PER_ROW + FUSED_EXTRA_OPS_PER_ROW) * n0),
-        ("edge_csr.rw", "edge_csr", "window",
-         lambda: edge_csr.rw(W0.csr, q), lambda: plain("rw", W0.csr, q),
-         None, csr_bytes(W0.csr, 3) + sz * n0 * 10,
-         RW_OPS_PER_ENTRY * W0.csr.num_entries),
-        ("edge_csr.flux", "edge_csr", "spill",
-         lambda: edge_csr.flux(spill, q),
-         lambda: plain("flux", spill, q), None,
-         csr_bytes(spill, 4) + sz * n0 * 10,
-         FLUX_OPS_PER_ENTRY * spill.num_entries + FLUX_OPS_PER_ROW * n0),
-    ]
     records = []
     for (rname, family, run, kfn, pfn, lfn, nbytes, nops) in rows:
+        counter = rname
         counts, pc = runs[run]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / flops * 1e3
-        require(counts[rname] > 0, f"{rname}: no launch in the {tag} "
+        require(counts[counter] > 0, f"{rname}: no launch in the {tag} "
                 f"{run} run")
         lib_ms, lib_note = None, "-"
         if lfn is not None:
@@ -737,18 +953,20 @@ def kernel_records(s_main, s_win, spill_csr, runs, card_label: str):
                 lib_note = f"{lib_ms * 1e3:.1f} us"
             except RuntimeError as e:   # no such library call for dt
                 lib_note = f"none ({str(e).splitlines()[0][:60]})"
+        name = rname + suffix + ("" if tag == "fp32" else f".{tag}")
+        got, want = kfn(), pfn()
+        check_cases([(name, got, want)], dt)
         rec = {
-            "name": rname if tag == "fp32" else f"{rname}.{tag}",
-            "route": "cuda", "source": SOURCES[family],
-            "replaces": REPLACES[family], "launches": counts[rname],
-            "max_abs_err": float((kfn().double() - pfn().double()).abs()
+            "name": name, "route": "cuda", "source": SOURCES[family],
+            "replaces": REPLACES[family], "launches": counts[counter],
+            "max_abs_err": float((got.double() - want.double()).abs()
                                  .max()),
             "ms": device_ms(kfn), "plain_ms": device_ms(pfn),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms, "floor_ms": floor_ms,
             "dtype": str(dt).split(".")[-1],
-            "path": run, "launches_per_cycle": pc[rname],
+            "path": run, "launches_per_cycle": pc[counter],
         }
         records.append(rec)
         log(f"time {rec['name']:29s} {rec['ms'] * 1e3:9.1f} us  plain "
@@ -756,8 +974,162 @@ def kernel_records(s_main, s_win, spill_csr, runs, card_label: str):
             f"{rec['bound_ms'] * 1e3:7.1f} us ({rec['bound_by']}, "
             f"{nbytes / 1e6:.1f} MB)  floor {floor_ms * 1e3:.1f} us  "
             f"library {lib_note}  launches per "
-            f"cycle {pc[rname]:g} ({tag} {run} run)  [{card_label}]")
+            f"cycle {pc[counter]:g} ({tag} {run} run)  [{card_label}]")
     return records
+
+
+def check_library(name: str, lfn, pfn, dt) -> None:
+    """A library row computes the kernel's function: its node-major result
+    against the plain version (fp32 and fp64; other dtypes may have no
+    such call)."""
+    import torch
+    if dt == torch.bfloat16:
+        return
+    check_cases([(f"{name} library call", lfn().T.contiguous(), pfn())], dt)
+
+
+def window_rows(W0, W1, q, old, fac, res1, run: str, transfer_run: str):
+    """time_rows rows of the CSR kernels at level 0 of a 'window' solver:
+    fused_stage and edge_csr.rw (launches from the `run` path's run), the
+    restriction and the prolongation (from `transfer_run`'s)."""
+    import torch
+    from mgcfd_tpu_torch.kernels import edge_csr
+    from mgcfd_tpu_torch.kernels.fused_stage import (fused_stage,
+                                                     fused_stage_plain)
+    plain = edge_csr.edge_csr_plain
+    sz = q.element_size()
+    n0, n1 = W0.num_nodes, W1.num_nodes
+    sp_r, sp_p = sparse_csr(W0.restrict_csr), sparse_csr(W0.prolong_csr)
+    xf_t, rc_t = q.T.contiguous(), res1.T.contiguous()
+    lib_crw = csr_rw_library(W0.csr, q)
+    check_library(f"edge_csr.rw ({run})", lib_crw,
+                  lambda: plain("rw", W0.csr, q), q.dtype)
+    # name and counter, kernel family, path whose run gives the launches,
+    # kernel fn, plain fn, library fn, bytes, operations
+    return [
+        ("edge_csr.wsum.restrict", "edge_csr", transfer_run,
+         lambda: edge_csr.restrict(W0.restrict_csr, q),
+         lambda: plain("wsum", W0.restrict_csr, q),
+         lambda: torch.sparse.mm(sp_r, xf_t),
+         csr_bytes(W0.restrict_csr, 1, sz) + sz * 5 * (n0 + n1),
+         WSUM_OPS_PER_ENTRY * W0.restrict_csr.num_entries),
+        ("edge_csr.wsum.prolong", "edge_csr", transfer_run,
+         lambda: edge_csr.prolong(W0.prolong_csr, res1),
+         lambda: plain("wsum", W0.prolong_csr, res1),
+         lambda: torch.sparse.mm(sp_p, rc_t),
+         csr_bytes(W0.prolong_csr, 1, sz) + sz * 5 * (n1 + n0),
+         WSUM_OPS_PER_ENTRY * W0.prolong_csr.num_entries),
+        ("fused_stage", "fused_stage", run,
+         lambda: fused_stage(W0.csr, W0.nc, q, old, fac)[0],
+         lambda: fused_stage_plain(W0.csr, W0.nc, q, old, fac)[0], None,
+         csr_bytes(W0.csr, 4, sz) + sz * n0 * (5 + 5 + 1 + 11 + 5) + 4,
+         FLUX_OPS_PER_ENTRY * W0.csr.num_entries
+         + (FLUX_OPS_PER_ROW + FUSED_EXTRA_OPS_PER_ROW) * n0),
+        ("edge_csr.rw", "edge_csr", run,
+         lambda: edge_csr.rw(W0.csr, q), lambda: plain("rw", W0.csr, q),
+         lib_crw, csr_bytes(W0.csr, 3, sz) + sz * n0 * 10,
+         RW_OPS_PER_ENTRY * W0.csr.num_entries),
+    ]
+
+
+def kernel_records(s_main, s_win, spill_csr, runs, card_label: str):
+    """Each kernel's record at the level-0 shapes and dtype of s_main
+    ('pallas') and s_win ('window'); see time_rows. The library call, where
+    one PyTorch call computes the same function, is torch.sparse.mm for
+    the transfers and torch.sparse.addmm for the rw twins (affine in q);
+    the flux and the stages have none (nonlinear in q)."""
+    import torch
+    from mgcfd_tpu_torch.kernels import edge_csr, shift
+    dt = s_main.dtype
+    M0 = s_main.dmesh.levels[0]
+    q = s_main.state["variables"][0]
+    old = q + 1e-6 * q
+    fac = torch.full_like(M0.volumes, 1e-3)
+    sz = q.element_size()
+    n0 = M0.num_nodes
+    sh = M0.shift
+    D = len(sh.deltas)
+    # the spill edges of the one-span level 0, in this dtype
+    spill = dataclasses.replace(spill_csr, w=spill_csr.w.to(dt))
+    lib_srw = shift_rw_library(sh, q)
+    check_library("shift.rw", lib_srw, lambda: shift.shift_plain(
+        "rw", sh, q), dt)
+    rows = [
+        ("shift.fused_stage", "shift_fused_stage", "main",
+         lambda: shift.fused_stage(sh, M0.nc, q, old, fac)[0],
+         lambda: shift.shift_fused_stage_plain(sh, M0.nc, q, old, fac)[0],
+         None, sz * n0 * (5 + 4 * D + 5 + 1 + 11 + 5) + 4,
+         (SHIFT_FLUX_OPS_PER_SPAN_ROW * D + FLUX_OPS_PER_ROW
+          + FUSED_EXTRA_OPS_PER_ROW) * n0),
+        ("shift.rw", "shift_flux", "main", lambda: shift.rw(sh, q),
+         lambda: shift.shift_plain("rw", sh, q), lib_srw,
+         sz * n0 * (5 + 3 * D + 5), SHIFT_RW_OPS_PER_SPAN_ROW * D * n0),
+        ("shift.flux", "shift_flux", "unfused", lambda: shift.flux(sh, q),
+         lambda: shift.shift_plain("flux", sh, q), None,
+         sz * n0 * (5 + 4 * D + 5),
+         (SHIFT_FLUX_OPS_PER_SPAN_ROW * D + FLUX_OPS_PER_ROW) * n0),
+        *window_rows(s_win.dmesh.levels[0], s_win.dmesh.levels[1], q, old,
+                     fac, s_main.state["residuals"][1], "window", "main"),
+        ("edge_csr.flux", "edge_csr", "spill",
+         lambda: edge_csr.flux(spill, q),
+         lambda: edge_csr.edge_csr_plain("flux", spill, q), None,
+         csr_bytes(spill, 4, sz) + sz * n0 * 10,
+         FLUX_OPS_PER_ENTRY * spill.num_entries + FLUX_OPS_PER_ROW * n0),
+    ]
+    return time_rows(rows, runs, dt, launch_floor_ms(q.device), card_label)
+
+
+def tet_records(solvers, runs, card_label: str):
+    """Level-0 records of the tet flagship's window path for each of
+    solvers {suffix: fp32 'window' solver} (its RCM order, the generator's
+    shuffled order): fused_stage, edge_csr.rw and the two transfers, timed
+    as kernel_records times them, names suffixed."""
+    import torch
+    records = []
+    for suffix, s in solvers.items():
+        W0 = s.dmesh.levels[0]
+        q = s.state["variables"][0]
+        rows = window_rows(W0, s.dmesh.levels[1], q, q + 1e-6 * q,
+                           torch.full_like(W0.volumes, 1e-3),
+                           s.state["residuals"][1], suffix, suffix)
+        records += time_rows(rows, runs, s.dtype, launch_floor_ms(q.device),
+                             card_label, suffix)
+    return records
+
+
+def start_tet_flagship(here: Path, scratch: Path):
+    """Generate, renumber, write and parse the tet flagship in a child
+    process (bench/tet_flagship.py), so that its minutes of host time
+    overlap the box phases. Returns (process, its output directory)."""
+    out = scratch / "tet_flagship"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mgcfd_tpu_torch.bench.tet_flagship",
+         "--out", str(out)], cwd=here,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, out
+
+
+def finish_tet_flagship(job):
+    """Wait for the child, load the hierarchy from its files through the
+    npz cache it filled, and renumber it (RCM). Returns (the RCM-ordered
+    mesh, the generator-ordered one, the child's JSON line of host
+    seconds plus those of the cached load and of RCM)."""
+    from mgcfd_tpu_torch.bench.tet_flagship import input_path
+    from mgcfd_tpu_torch.mesh import load_multigrid_mesh
+    from mgcfd_tpu_torch.prep.renumber import renumber_hierarchy
+    proc, out = job
+    left = WATCHDOG_S - (time.perf_counter() - T0)
+    stdout, stderr = proc.communicate(timeout=max(1.0, left))
+    require(proc.returncode == 0, f"tet flagship generation failed "
+            f"(rc {proc.returncode}):\n{stderr[-2000:]}")
+    secs = json.loads(stdout.strip().splitlines()[-1])
+    t0 = time.perf_counter()
+    shuffled = load_multigrid_mesh(input_path(str(out)))
+    t1 = time.perf_counter()
+    rcm = renumber_hierarchy(shuffled)
+    secs.update(cached_load_s=t1 - t0, renumber_s=time.perf_counter() - t1)
+    shuffled.name, rcm.name = "tet-flagship-shuffled", "tet-flagship-rcm"
+    return rcm, shuffled, secs
 
 
 def main() -> int:
@@ -773,11 +1145,30 @@ def main() -> int:
               "run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(here))
+    scratch = Path(tempfile.mkdtemp(prefix="mgcfd_smoke_"))
+    job = start_tet_flagship(here, scratch)
+    try:
+        return smoke(job, scratch)
+    finally:
+        if job[0].poll() is None:
+            job[0].kill()
+            job[0].communicate()
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+def smoke(tet_job, scratch: Path) -> int:
+    """Every phase in order (module docstring); raises on a failed check."""
+    import torch
     from mgcfd_tpu_torch.bench import FLAGSHIP_SPEC, flagship_mesh
+    from mgcfd_tpu_torch.cli.main import main as cli_main
     from mgcfd_tpu_torch.core.config import SolverConfig
     from mgcfd_tpu_torch.core.constants import MeshVariant
     from mgcfd_tpu_torch.kernels import build, edge_csr
-    from mgcfd_tpu_torch.mesh import generate_unstructured_hierarchy
+    from mgcfd_tpu_torch.mesh import (generate_unstructured_hierarchy,
+                                      load_multigrid_mesh,
+                                      write_multigrid_mesh)
+    from mgcfd_tpu_torch.prep.renumber import (locality_stats,
+                                               renumber_hierarchy)
     from mgcfd_tpu_torch.prep.shift import build_shift_plan
     from mgcfd_tpu_torch.solver import MGCFDSolver
     from mgcfd_tpu_torch.solver import solver as solver_mod
@@ -868,6 +1259,36 @@ def main() -> int:
                                     WANT_UNFUSED)
     healthy(u16, "box bf16 'pallas' unfused")
 
+    # --- run_batched (a CUDA graph of K cycles) against run ---
+    for dt, acc, want in (("float32", "auto", WANT_MAIN),
+                          ("bfloat16", "auto", WANT_MAIN),
+                          ("float32", "window", WANT_WINDOW)):
+        batched_equals_run(functools.partial(solver, mesh, dt, acc),
+                           f"box {dt} '{acc}'", want)
+    batched_equals_run(functools.partial(solver, mesh, "float64", "segment"),
+                       "box float64 'segment'", exact=False)
+
+    # --- the reference's files: write, parse, then the npz cache ---
+    t0 = time.perf_counter()
+    box_input = write_multigrid_mesh(str(scratch / "box"), mesh)
+    t1 = time.perf_counter()
+    cold = load_multigrid_mesh(box_input)
+    t2 = time.perf_counter()
+    cached = load_multigrid_mesh(box_input)
+    t3 = time.perf_counter()
+    for what, got in (("parsed", cold), ("cached", cached)):
+        same_arrays(got, mesh, f"box flagship {what} from .dat files")
+    log(f"box flagship as .dat/.mg/input.dat: write {t1 - t0:.2f} s, "
+        f"parse {t2 - t1:.2f} s, cached load {t3 - t2:.2f} s (host)")
+    f32 = solver(cold, "float32")
+    f32.run(2)
+    require(f32.config.accumulate == "pallas"
+            and f32.rms_history == m32.rms_history[:2],
+            f"box from files: RMS {f32.rms_history} against the generated "
+            f"mesh's {m32.rms_history[:2]}")
+    log(f"box flagship from files through auto ('pallas') fp32, 2 cycles: "
+        f"RMS {f32.rms_history} == the generated mesh's")
+
     # --- the same box undamped, from a perturbed state ---
     umesh = flagship_mesh(dataclasses.replace(FLAGSHIP_SPEC,
                                               variant=MeshVariant.FVCORR))
@@ -933,10 +1354,19 @@ def main() -> int:
     # records read the fp64 runs' launches for those
     runs32["unfused"], runs32["spill"] = runs64["unfused"], runs64["spill"]
 
-    # --- tet hierarchy: auto takes 'window' there, fp64 and bf16; and
-    # 'pallas' at fp64 (level 0 and 1 plans hold no span, every edge spills)
+    # --- tet hierarchy, through its files and RCM (the CLI's -i ...
+    # --renumber path): auto takes 'window' there, fp64 and bf16; and
+    # 'pallas' at fp64 (span plans that cover little, spill edges)
+    tet_input = write_multigrid_mesh(str(scratch / "tet32"), tmesh)
+    tloaded = load_multigrid_mesh(tet_input)
+    same_arrays(tloaded, tmesh, "tet 32^3 from .dat files")
+    tmesh = renumber_hierarchy(tloaded)
     log(f"tet {tmesh.levels[0].num_nodes} nodes, "
-        f"{tmesh.levels[0].num_internal_edges} edges, 3 levels")
+        f"{tmesh.levels[0].num_internal_edges} edges, 3 levels, from "
+        f"files, RCM: level-0 index span {locality_stats(tloaded.levels[0])}"
+        f" -> {locality_stats(tmesh.levels[0])}")
+    require(cli_main(["-i", tet_input, "--renumber", "-g", "2"]) == 0,
+            "the CLI failed on the tet's files")
     kt, kt16 = solver(tmesh, "float64"), solver(tmesh, "bfloat16")
     require(kt.config.accumulate == kt16.config.accumulate == "window",
             "auto did not take the CSR kernels on the tet")
@@ -954,12 +1384,43 @@ def main() -> int:
                  "edge_csr.wsum.restrict": 2, "edge_csr.wsum.prolong": 2})
     healthy(kt16, "tet bf16 'window'")
 
+    # --- the tet flagship, generated and renumbered by the child ---
+    tr, ts, secs = finish_tet_flagship(tet_job)
+    log(f"tet flagship {secs['nodes']} nodes, {secs['internal_edges']} "
+        f"internal edges: generated in {secs['generate_s']:.1f} s, "
+        f"written as files in {secs['write_s']:.1f} s and parsed in "
+        f"{secs['parse_s']:.1f} s (host, a child process); loaded here "
+        f"through the npz cache in {secs['cached_load_s']:.2f} s, RCM in "
+        f"{secs['renumber_s']:.1f} s; level-0 index span "
+        f"{locality_stats(ts.levels[0])} -> {locality_stats(tr.levels[0])}")
+    tf64, tfp = solver(tr, "float64"), solver(tr, "float64", "segment")
+    require(tf64.config.accumulate == "window",
+            "auto did not take the CSR kernels on the tet flagship")
+    tf64.run(2)
+    tfp.run(2)
+    same_as_plain(tf64, tfp, tr, "tet flagship fp64 'window' (auto)")
+    for dt in ("float32", "bfloat16"):
+        batched_equals_run(functools.partial(solver, tr, dt),
+                           f"tet flagship {dt} (auto)", WANT_WINDOW)
+    tets32, runs_tet = {}, {}
+    for suffix, m in ((".tet", tr), (".tet_shuffled", ts)):
+        tets32[suffix] = solver(m, "float32")
+        runs_tet[suffix] = counted_run(tets32[suffix], 2,
+                                       f"tet flagship fp32{suffix}",
+                                       WANT_WINDOW)
+
     # --- times at the level-0 shapes, for each dtype ---
     records = []
     for s_main, s_win, runs in ((m32, w32, runs32), (m64, w64, runs64),
                                 (m16, w16, runs16)):
         records += kernel_records(s_main, s_win, L0.spill_csr, runs,
                                   f"{name}, {smi}")
+    records += tet_records(tets32, runs_tet, f"{name}, {smi}")
+    timings = [batched_timing(s_, what, f"{name}, {smi}") for s_, what in (
+        (m32, "box 'pallas' fp32"), (m16, "box 'pallas' bf16"),
+        (w32, "box 'window' fp32"),
+        (tets32[".tet"], "tet flagship RCM 'window' fp32"),
+        (tets32[".tet_shuffled"], "tet flagship shuffled 'window' fp32"))]
     log(f"V-cycle, box flagship, main path ('pallas', auto): fp32 "
         f"{cycle_ms[('pallas', 'fp32')]:.3f} ms, bf16 "
         f"{cycle_ms[('pallas', 'bf16')]:.3f} ms per cycle; 'window': fp32 "
@@ -967,6 +1428,7 @@ def main() -> int:
         f"{cycle_ms[('window', 'bf16')]:.3f} ms per cycle (CUDA events "
         f"over 10 cycles after 2) [{name}, {smi}]")
 
+    log("run_batched timings: " + json.dumps(timings))
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,21 @@
 """Command-line entry point, a subset of mgcfd_tpu's flags:
 
+    python -m mgcfd_tpu_torch.cli.main -i input.dat [-d DIR] [-m M]
+        [--renumber] -g 10
     python -m mgcfd_tpu_torch.cli.main --synthetic 68,64,70,4 -g 10
 
---synthetic NX,NY,NZ,L (the flagship box family), -g, --dtype,
+-i/--input-file (the reference's input.dat), -d/--input-directory,
+-m/--mesh-duplicate-count, --renumber (RCM, prep/renumber.py) or
+--synthetic NX,NY,NZ,L (the flagship box family); -g, --dtype,
 --accumulate, --transposed, --no-indirect-rw and --platform (cuda, the
-default, or cpu). Any other flag of the JAX CLI is refused as not ported yet.
+default, or cpu). The mesh is loaded, then duplicated, then renumbered, in
+the order of mgcfd_tpu's CLI. Any other flag of the JAX CLI is refused as
+not ported yet.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -20,8 +27,17 @@ def build_parser() -> argparse.ArgumentParser:
         prog="mgcfd-torch",
         description="Multigrid Euler solver (PyTorch + CUDA port of "
                     "mgcfd_tpu)")
-    p.add_argument("--synthetic", required=True, metavar="NX,NY,NZ,L",
-                   help="run on a generated box hierarchy")
+    p.add_argument("-i", "--input-file", default=None,
+                   help="multigrid input grid (input.dat descriptor)")
+    p.add_argument("-d", "--input-directory", default=None)
+    p.add_argument("-m", "--mesh-duplicate-count", type=int, default=None)
+    p.add_argument("--synthetic", default=None, metavar="NX,NY,NZ,L",
+                   help="run on a generated box hierarchy instead of -i")
+    p.add_argument("--renumber", action="store_true",
+                   help="RCM-renumber the mesh hierarchy before solving "
+                        "(prep/renumber.py): imported meshes arrive in "
+                        "arbitrary order and the kernels' gathers depend "
+                        "on locality")
     p.add_argument("-g", "--num-cycles", type=int, default=None)
     p.add_argument("--dtype", default=None, choices=DTYPES)
     p.add_argument("--accumulate", default=None, choices=ACCUMULATE_MODES,
@@ -45,6 +61,12 @@ def main(argv=None) -> int:
         parser.error(f"not ported yet: {' '.join(rest)} (ROADMAP.md "
                      "queue 1, item 8 brings the full CLI)")
     cfg = SolverConfig()
+    if args.input_file is not None:
+        cfg.input_file = args.input_file
+    if args.input_directory is not None:
+        cfg.input_file_directory = args.input_directory
+    if args.mesh_duplicate_count is not None:
+        cfg.mesh_duplicate_count = args.mesh_duplicate_count
     if args.num_cycles is not None:
         cfg.num_cycles = args.num_cycles
     if args.dtype:
@@ -55,14 +77,32 @@ def main(argv=None) -> int:
     if args.no_indirect_rw:
         cfg.include_indirect_rw = False
 
-    from ..bench.flagship import FlagshipSpec, flagship_mesh
+    if args.synthetic:
+        from ..bench.flagship import FlagshipSpec, flagship_mesh
+        nx, ny, nz, L = (int(x) for x in args.synthetic.split(","))
+        mesh = flagship_mesh(FlagshipSpec(nx=nx, ny=ny, nz=nz,
+                                          num_levels=L))
+    else:
+        if not cfg.input_file:
+            print("ERROR: input_file not set")
+            return 1
+        from ..mesh import load_multigrid_mesh
+        path = cfg.input_file
+        if cfg.input_file_directory:
+            path = os.path.join(cfg.input_file_directory, cfg.input_file)
+        mesh = load_multigrid_mesh(path, cfg.input_file_directory)
+    if cfg.mesh_duplicate_count > 1:
+        from ..mesh import duplicate_mesh
+        mesh = duplicate_mesh(mesh, cfg.mesh_duplicate_count)
+    if args.renumber:
+        from ..prep.renumber import renumber_hierarchy
+        mesh = renumber_hierarchy(mesh)
+
     from ..solver import MGCFDSolver
-    nx, ny, nz, L = (int(x) for x in args.synthetic.split(","))
-    mesh = flagship_mesh(FlagshipSpec(nx=nx, ny=ny, nz=nz, num_levels=L))
     solver = MGCFDSolver(mesh, cfg, device=args.platform)
     print(f"mesh {mesh.name}: {mesh.levels[0].num_nodes} nodes, "
-          f"{L} levels; dtype={cfg.dtype} accumulate={cfg.accumulate} "
-          f"device={solver.device}", flush=True)
+          f"{mesh.num_levels} levels; dtype={cfg.dtype} "
+          f"accumulate={cfg.accumulate} device={solver.device}", flush=True)
     t0 = time.perf_counter()
     solver.run(cfg.num_cycles, verbose=True)
     print(f"{cfg.num_cycles} cycles in {time.perf_counter() - t0:.3f} s "

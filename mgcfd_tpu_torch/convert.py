@@ -11,10 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from .core.constants import MeshVariant
-from .core.types import MeshLevel, MultigridMesh
-
-_LEVEL_FIELDS = ("volumes", "coords", "edge_a", "edge_b", "edge_w",
-                 "bedge_b", "bedge_w", "wedge_b", "wedge_w", "mg_mapping")
+from .core.types import LEVEL_ARRAYS, MeshLevel, MultigridMesh
 
 
 def _copy(a):
@@ -24,7 +21,7 @@ def _copy(a):
 def mesh_from_arrays(obj) -> MultigridMesh:
     levels = []
     for lv in obj.levels:
-        kw = {f: _copy(getattr(lv, f)) for f in _LEVEL_FIELDS}
+        kw = {f: _copy(getattr(lv, f)) for f in LEVEL_ARRAYS}
         dims = getattr(lv, "structured_dims", None)
         levels.append(MeshLevel(**kw, structured_dims=None if dims is None
                                 else tuple(dims)))

@@ -23,10 +23,7 @@ _ACCUMULATE_ROADMAP = {
 
 # field -> ROADMAP item; the field must keep its default until then
 _NOT_PORTED = {
-    "input_file": "queue 1, item 5 (mesh/io_dat.py)",
-    "input_file_directory": "queue 1, item 5 (mesh/io_dat.py)",
     "output_file_prefix": "queue 1, item 6 (validate/golden.py dumps)",
-    "mesh_duplicate_count": "queue 1, item 5 (mesh/duplicate.py)",
     "validate_result": "queue 1, item 6 (validate/)",
     "output_variables": "queue 1, item 6 (validate/golden.py dumps)",
     "output_fluxes": "queue 1, item 6 (validate/golden.py dumps)",

@@ -46,6 +46,13 @@ class MeshVariant(enum.Enum):
             MeshVariant.ROTOR_37: 2e-7,
         }.get(self)
 
+    @property
+    def flips_all_normals(self) -> bool:
+        """FVCORR flips every edge normal at read time (Rodinia
+        compatibility); the others flip only internal edges (io.cpp:
+        117-133)."""
+        return self is MeshVariant.FVCORR
+
 
 def far_field_state(dtype=np.float64):
     """Far-field conserved state (5,) and its flux tensor (3, 5):

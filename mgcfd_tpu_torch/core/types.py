@@ -13,6 +13,10 @@ import numpy as np
 
 from .constants import MeshVariant
 
+# the array fields of a MeshLevel, as each reader and writer carries them
+LEVEL_ARRAYS = ("volumes", "coords", "edge_a", "edge_b", "edge_w",
+                "bedge_b", "bedge_w", "wedge_b", "wedge_w", "mg_mapping")
+
 
 @dataclasses.dataclass
 class MeshLevel:
@@ -38,6 +42,19 @@ class MeshLevel:
     @property
     def num_internal_edges(self) -> int:
         return int(self.edge_a.shape[0])
+
+    @property
+    def num_boundary_edges(self) -> int:
+        return int(self.bedge_b.shape[0])
+
+    @property
+    def num_wall_edges(self) -> int:
+        return int(self.wedge_b.shape[0])
+
+    @property
+    def num_edges(self) -> int:
+        return (self.num_internal_edges + self.num_boundary_edges
+                + self.num_wall_edges)
 
     def validate(self) -> None:
         """Raise ValueError on inconsistent shapes or out-of-range ids."""

@@ -26,5 +26,13 @@ def launch_counts() -> dict:
     return {w.name: w.launches for w in WRAPPERS}
 
 
+def add_launch_counts(counts: dict) -> None:
+    """Add {wrapper name: launches} to the counts: a replayed CUDA graph
+    launches the kernels its capture recorded without calling the
+    wrappers (MGCFDSolver.run_batched)."""
+    for w in WRAPPERS:
+        w.launches += counts.get(w.name, 0)
+
+
 __all__ = ["DeviceCSR", "DeviceShift", "WRAPPERS", "reset_launch_counts",
-           "launch_counts"]
+           "launch_counts", "add_launch_counts"]

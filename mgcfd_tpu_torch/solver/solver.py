@@ -6,8 +6,10 @@ compute the step factor, run 3 RK stages (internal + boundary + wall
 flux, time step, invalid count, then the indirect_rw twin), and form the
 residual; per cycle visit levels 0..L-1 on the way up, restricting after
 each, then prolong/visit pairs down to level 1 (level 0 is visited at the
-start of the next cycle). PyTorch runs it eagerly; the host reads one RMS
-and one invalid count per cycle.
+start of the next cycle). `run` runs it eagerly, and the host reads one
+RMS and one invalid count per cycle; `run_batched` runs K cycles per
+batch, on CUDA as one replay of a CUDA graph that captured them
+(CycleGraph), and reads the K RMS values and invalid counts once.
 
 Paths, chosen by SolverConfig.accumulate:
   'segment'  node-major (N, 5) state, plain edge-stream ops (index_add_)
@@ -38,6 +40,7 @@ import torch
 from ..core.config import SolverConfig
 from ..core.constants import NVAR, RK, MeshVariant, far_field_state
 from ..core.types import MultigridMesh
+from .. import kernels
 from ..kernels import DeviceCSR, DeviceShift, edge_csr, shift
 from ..kernels.fused_stage import fused_stage, invalid_count
 from ..mesh.build import apply_ewt_conditioning
@@ -393,6 +396,78 @@ def apply_prolong(fine: DeviceLevel, coarse: DeviceLevel, res_c, res_f,
 
 
 # ---------------------------------------------------------------------------
+# K cycles as one CUDA graph
+# ---------------------------------------------------------------------------
+
+class CycleGraph:
+    """K consecutive cycles of a CUDA solver captured as one CUDA graph
+    (the counterpart of mgcfd_tpu's make_multi_cycle_fn, K cycles in one
+    lax.scan). The graph reads the state from static buffers and, at the
+    end of the captured region, copies each level's new variables and
+    residuals back into them, so one replay advances the buffers by K
+    cycles. It also leaves the K RMS values and invalid counts stacked on
+    the device. ``launches`` holds the kernel launches one capture
+    recorded; a replay calls no wrapper, so replay() adds them to the
+    counts."""
+
+    def __init__(self, solver: "MGCFDSolver", k: int):
+        self.k = k
+        st = solver.state
+        self.variables = [t.clone() for t in st["variables"]]
+        self.residuals = [t.clone() for t in st["residuals"]]
+        counts = kernels.launch_counts()
+        try:
+            # warm-up on a clone of the state, on a side stream as torch's
+            # capture recipe asks: the first launch of a kernel builds the
+            # library and sets its attributes, which capture must not do
+            side = torch.cuda.Stream(solver.device)
+            side.wait_stream(torch.cuda.current_stream(solver.device))
+            with torch.cuda.stream(side):
+                solver.state = {"variables": [t.clone() for t in
+                                              self.variables],
+                                "residuals": [t.clone() for t in
+                                              self.residuals]}
+                solver.cycle()
+            torch.cuda.current_stream(solver.device).wait_stream(side)
+            kernels.reset_launch_counts()
+            self.graph = torch.cuda.CUDAGraph()
+            solver.state = {"variables": list(self.variables),
+                            "residuals": list(self.residuals)}
+            with torch.cuda.graph(self.graph):
+                rms, invalid = [], []
+                for _ in range(k):
+                    r, i = solver.cycle()
+                    rms.append(r)
+                    invalid.append(i)
+                for key, bufs in (("variables", self.variables),
+                                  ("residuals", self.residuals)):
+                    for buf, t in zip(bufs, solver.state[key]):
+                        buf.copy_(t)
+                self.rms = torch.stack(rms)
+                self.invalid = torch.stack(invalid)
+            self.launches = kernels.launch_counts()
+        finally:
+            solver.state = st
+            kernels.reset_launch_counts()
+            kernels.add_launch_counts(counts)
+
+    def replay(self, solver: "MGCFDSolver"):
+        """Advance the solver's state by K cycles; returns the stacked
+        (rms (K,), invalid (K,)) on the device. Afterwards solver.state
+        names the graph's buffers, which the next replay overwrites."""
+        for key, bufs in (("variables", self.variables),
+                          ("residuals", self.residuals)):
+            for buf, t in zip(bufs, solver.state[key]):
+                if t is not buf:
+                    buf.copy_(t)
+        self.graph.replay()
+        kernels.add_launch_counts(self.launches)
+        solver.state = {"variables": list(self.variables),
+                        "residuals": list(self.residuals)}
+        return self.rms, self.invalid
+
+
+# ---------------------------------------------------------------------------
 # the solver
 # ---------------------------------------------------------------------------
 
@@ -417,6 +492,7 @@ class MGCFDSolver:
             [np.zeros((lv.num_nodes, NVAR)) for lv in mesh.levels])
         self.rms_history: list[float] = []
         self.completed_cycles = 0
+        self._graph: Optional[CycleGraph] = None
 
     def _layout(self, variables, residuals) -> dict:
         """Node-major host arrays -> the state dict in the path's layout."""
@@ -502,6 +578,46 @@ class MGCFDSolver:
                     print(f"MG cycle {i + 1} / {cycles} "
                           f"(RMS = {self.rms_history[-1]:.3e})", flush=True)
             self.completed_cycles += 1
+        return self.state
+
+    def _batch(self, k: int):
+        """K cycles; returns (rms (K,), invalid (K,)) on the device. On
+        CUDA one replay of the cached graph of K cycles (captured at the
+        first batch of this K); elsewhere the eager loop."""
+        if self.device.type != "cuda":
+            out = [self.cycle() for _ in range(k)]
+            return (torch.stack([r for r, _ in out]),
+                    torch.stack([i for _, i in out]))
+        if self._graph is None or self._graph.k != k:
+            self._graph = None     # free the old graph's pool first
+            self._graph = CycleGraph(self, k)
+        return self._graph.replay(self)
+
+    def run_batched(self, cycles: int, cycles_per_dispatch: int = 10,
+                    verbose: bool = False):
+        """Run `cycles` cycles in batches of K = cycles_per_dispatch (see
+        _batch), as mgcfd_tpu's run_batched does: the RMS and invalid
+        count of every cycle are kept on the device, the fail-fast check
+        runs once per batch, and a tail shorter than K goes through run."""
+        k = max(1, min(cycles_per_dispatch, cycles))
+        done = 0
+        while done < cycles:
+            if cycles - done < k:
+                self.run(cycles - done, verbose=verbose)
+                return self.state
+            rms, invalid = self._batch(k)
+            done += k
+            self.completed_cycles += k
+            inv = int(invalid.sum())
+            if inv > 0:
+                raise FloatingPointError(
+                    f"invalid state detected within cycles "
+                    f"{done - k + 1}..{done}: {inv} bad entries")
+            self.rms_history.extend(
+                rms.to("cpu", torch.float64).tolist())
+            if verbose:
+                print(f"MG cycle {done} / {cycles} "
+                      f"(RMS = {self.rms_history[-1]:.3e})", flush=True)
         return self.state
 
     def _node_major(self, t: torch.Tensor) -> torch.Tensor:

@@ -130,8 +130,7 @@ def test_accumulate_resolution_and_unported_options():
 
 # every field the port lacks, at a value other than its default
 UNPORTED = {
-    "input_file": "mesh.dat", "input_file_directory": "d",
-    "output_file_prefix": "p", "mesh_duplicate_count": 2,
+    "output_file_prefix": "p",
     "validate_result": True, "output_variables": True,
     "output_fluxes": True, "output_step_factors": True,
     "output_volumes": True, "output_edge_fluxes": True,
@@ -154,6 +153,15 @@ def test_unported_field_raises(field):
                  ).validate()
     with pytest.raises(NotImplementedError, match=field):
         SolverConfig(**{field: UNPORTED[field]}).validate()
+
+
+@pytest.mark.parametrize("field,value", [
+    ("input_file", "mesh.dat"), ("input_file_directory", "d"),
+    ("mesh_duplicate_count", 2)])
+def test_mesh_file_fields_accepted(field, value):
+    """The mesh-file fields (mesh/io_dat.py, mesh/duplicate.py; the CLI's
+    -i, -d and -m) are ported and taken at any value."""
+    SolverConfig(**{field: value}).validate()
 
 
 @pytest.mark.parametrize("kind", ["box", "tet"])
