@@ -21,8 +21,11 @@ What it does, in order, printing each step with the elapsed seconds:
      its wsum transfers, shift in flux and rw modes, shift.fused_stage
      (with and without a spill operand) and fused_stage at every level's
      shapes, with the launch shapes of the span kernel (channel split,
-     unrolled span loop) and of the wsum transfers (channel split, loads)
-     read from their C entry points and held to the Python mirrors; the span kernels and the two tiled stage kernels also at
+     unrolled span loop), of the wsum transfers (channel split, loads)
+     and of edge_csr's rw mode (row, tile, lane groups) read from their C
+     entry points and held to the Python mirrors, rw mode at every level
+     of the box flagship and every rw shape at its level 0, each
+     bit-equal to the chosen one; the span kernels and the two tiled stage kernels also at
      shapes that stress their tiling and launch shapes (the flagship's
      plans cut to one span, a box whose two longer strides exceed the
      halo, a box whose node count is odd, the 32^3 tet's levels with
@@ -64,13 +67,15 @@ What it does, in order, printing each step with the elapsed seconds:
      cache, and renumbers it (RCM), the CLI's -i ... --renumber path;
      then fp64 through `auto`
      ('window') against fp64 plain, and fp32 and bf16 through run_batched
-     against run as in 8;
+     against run as in 8; edge_csr's rw mode at every level and every rw
+     shape at level 0, as on the box in 4, at fp64, fp32 and bf16;
  13. times each V-cycle (fp32 beside bf16) and each kernel at fp32, fp64
      and bf16 (each held to its plain version at the tolerance of 4
      first) beside its bound, its plain version, a library call where
      one computes the same function, and the launch floor (a one-element
      in-place add, timed the same way); the tet flagship's level-0 kernels
-     in its RCM order and in the generator's shuffled order; and ms per
+     in its RCM order and in the generator's shuffled order, and its
+     level-0 edge_csr.rw at bf16 and fp64 too; and ms per
      cycle through run_batched beside run, with device busy per cycle
      from torch.profiler, for the box ('pallas' fp32 and bf16, 'window'
      fp32) and the tet flagship ('window' fp32, RCM and shuffled); the
@@ -186,7 +191,8 @@ BATCH_CYCLES = 23
 BATCH_K = 10
 # the kernel family of each hand-written kernel's symbol, as the profiler
 # names it (mgcfd::<symbol><...>), and of each launch counter
-SYMBOL_FAMILY = {"edge_csr_kernel": "edge_csr", "wsum_row_kernel": "wsum",
+SYMBOL_FAMILY = {"edge_csr_kernel": "edge_csr", "rw_tile_kernel": "edge_csr",
+                 "rw_group_kernel": "edge_csr", "wsum_row_kernel": "wsum",
                  "wsum_split_kernel": "wsum",
                  "fused_stage_kernel": "fused_stage",
                  "shift_flux_kernel": "shift_flux",
@@ -363,6 +369,35 @@ def wsum_case(label: str, kern, csr, x, dt):
         f"{got.loads}")
     return (f"{kern.name} {label}", kern(csr, x),
             edge_csr.edge_csr_plain("wsum", csr, x))
+
+
+def check_rw(solver, label: str) -> None:
+    """edge_csr.rw against its plain version on every level's CSR of a
+    'window' solver, with the shape the C entry point picks held to the
+    Python mirror (kernels/edge_csr.py rw_shape); at level 0 every rw shape
+    too (EdgeCSR.at), each bit-equal to the chosen one."""
+    import torch
+    from mgcfd_tpu_torch.kernels import edge_csr
+    dt = solver.dtype
+    for lev, L in enumerate(solver.dmesh.levels):
+        csr = L.csr
+        got = edge_csr.rw.shape(csr)
+        want = edge_csr.rw_shape(csr.num_rows, csr.num_entries, dt)
+        require(got == want, f"edge_csr.rw {label} L{lev} {dt}: the C entry "
+                f"point picks {got}, the mirror {want}")
+        log(f"rw shape {label} L{lev} {TAGS[str(dt)]}: {csr.num_rows} rows, "
+            f"{csr.num_entries} entries: {edge_csr.RW_SHAPES[got]}")
+        q = random_state(L.num_nodes, 80 + lev, dt, L.volumes.device)
+        plain = edge_csr.edge_csr_plain("rw", csr, q)
+        chosen = edge_csr.rw(csr, q)
+        cases = [(f"edge_csr.rw {label} L{lev}", chosen, plain)]
+        if lev == 0:
+            for shape, name in edge_csr.RW_SHAPES.items():
+                out = edge_csr.rw.at(csr, q, shape)
+                require(torch.equal(out, chosen), f"edge_csr.rw {label} L0 "
+                        f"{dt}: shape {name} differs from the chosen one")
+                cases.append((f"edge_csr.rw {label} L0 {name}", out, plain))
+        check_cases(cases, dt)
 
 
 def check_stage_shapes(mesh, tmesh, dtypes, dev) -> None:
@@ -796,6 +831,10 @@ def refuse_unknown_dtype(lib) -> None:
                                            None, 1, None, 1, None),
         "mgcfd_wsum_shape": lib.mgcfd_wsum_shape(7, 1, 1,
                                                  ctypes.addressof(shape)),
+        "mgcfd_rw_at": lib.mgcfd_rw_at(7, 0, None, None, None, 0, None, None,
+                                       1, None, 1, None),
+        "mgcfd_rw_shape": lib.mgcfd_rw_shape(7, 1, 1,
+                                             ctypes.addressof(shape)),
         "mgcfd_shift_fused_stage": lib.mgcfd_shift_fused_stage(
             7, ctypes.addressof(deltas), ctypes.addressof(kinds), 1, 8, 1,
             None, None, None, None, None, None, None, None, 1, None),
@@ -1079,11 +1118,12 @@ def kernel_records(s_main, s_win, spill_csr, runs, card_label: str):
     return time_rows(rows, runs, dt, launch_floor_ms(q.device), card_label)
 
 
-def tet_records(solvers, runs, card_label: str):
+def tet_records(solvers, runs, card_label: str, only: str | None = None):
     """Level-0 records of the tet flagship's window path for each of
-    solvers {suffix: fp32 'window' solver} (its RCM order, the generator's
-    shuffled order): fused_stage, edge_csr.rw and the two transfers, timed
-    as kernel_records times them, names suffixed."""
+    solvers {suffix: 'window' solver} (fp32: its RCM order, the generator's
+    shuffled order): fused_stage, edge_csr.rw and the two transfers, or
+    the one named `only`, timed as kernel_records times them, names
+    suffixed."""
     import torch
     records = []
     for suffix, s in solvers.items():
@@ -1092,6 +1132,7 @@ def tet_records(solvers, runs, card_label: str):
         rows = window_rows(W0, s.dmesh.levels[1], q, q + 1e-6 * q,
                            torch.full_like(W0.volumes, 1e-3),
                            s.state["residuals"][1], suffix, suffix)
+        rows = [r for r in rows if only in (None, r[0])]
         records += time_rows(rows, runs, s.dtype, launch_floor_ms(q.device),
                              card_label, suffix)
     return records
@@ -1210,6 +1251,8 @@ def smoke(tet_job, scratch: Path) -> int:
                      ("float64", "float32", "bfloat16"))
 
     check_csr_kernels((w64, w32, w16))
+    for w in (w64, w32, w16):
+        check_rw(w, "box flagship")
     check_shift_kernels((m64, m32, m16))
     tmesh = generate_unstructured_hierarchy(32, 32, 32, 3, seed=0)
     check_stage_shapes(mesh, tmesh, (torch.float64, torch.float32,
@@ -1396,7 +1439,8 @@ def smoke(tet_job, scratch: Path) -> int:
     tf64, tfp = solver(tr, "float64"), solver(tr, "float64", "segment")
     require(tf64.config.accumulate == "window",
             "auto did not take the CSR kernels on the tet flagship")
-    tf64.run(2)
+    runs_tet64 = {".tet": counted_run(tf64, 2, "tet flagship fp64 (auto)",
+                                      WANT_WINDOW)}
     tfp.run(2)
     same_as_plain(tf64, tfp, tr, "tet flagship fp64 'window' (auto)")
     for dt in ("float32", "bfloat16"):
@@ -1408,6 +1452,11 @@ def smoke(tet_job, scratch: Path) -> int:
         runs_tet[suffix] = counted_run(tets32[suffix], 2,
                                        f"tet flagship fp32{suffix}",
                                        WANT_WINDOW)
+    t16 = solver(tr, "bfloat16")
+    runs_tet16 = {".tet": counted_run(t16, 2, "tet flagship bf16 (auto)",
+                                      WANT_WINDOW)}
+    for s_ in (tf64, tets32[".tet"], t16):
+        check_rw(s_, "tet flagship")
 
     # --- times at the level-0 shapes, for each dtype ---
     records = []
@@ -1416,6 +1465,9 @@ def smoke(tet_job, scratch: Path) -> int:
         records += kernel_records(s_main, s_win, L0.spill_csr, runs,
                                   f"{name}, {smi}")
     records += tet_records(tets32, runs_tet, f"{name}, {smi}")
+    for s_, runs in ((t16, runs_tet16), (tf64, runs_tet64)):
+        records += tet_records({".tet": s_}, runs, f"{name}, {smi}",
+                               only="edge_csr.rw")
     timings = [batched_timing(s_, what, f"{name}, {smi}") for s_, what in (
         (m32, "box 'pallas' fp32"), (m16, "box 'pallas' bf16"),
         (w32, "box 'window' fp32"),

@@ -1,5 +1,5 @@
 """The kernels of this tree against those of another tree, on the card, at
-the box flagship's shapes and a tet's transfers.
+the box flagship's shapes and two RCM-ordered tets' CSRs.
 
     python mgcfd_tpu_torch/bench/kernel_ab.py [--parent TREE] [--out DIR]
         [--shapes]
@@ -13,10 +13,12 @@ operands can be compared:
   - the two fused RK-stage kernels, shift.fused_stage and fused_stage, at
     level 0 (plan, nc, q, old, fac);
   - shift.rw and shift.flux (plan, q) at every level;
-  - the wsum transfers, edge_csr.restrict and edge_csr.prolong (CSR, x),
-    at every level that has them, on the flagship and on a 64^3 tet of 4
-    levels (irregular rows: the suffix .tet64; its CSRs made once, before
-    the turns, and loaded by each side).
+  - edge_csr.rw (CSR, q) at every level, and the wsum transfers,
+    edge_csr.restrict and edge_csr.prolong (CSR, x), at every level that
+    has them, on the flagship and on two tets in RCM order (irregular
+    rows): a 64^3 tet of 4 levels (suffix .tet64) and the tet flagship
+    (suffix .tetflag); their CSRs made once, before the turns, in
+    processes of their own, and loaded by each side.
 The processes run in turns, parent, new, new, parent (new alone without
 --parent), after both trees' kernels are built in parallel.
 
@@ -34,22 +36,25 @@ What each process does, for fp32, bf16 and fp64:
      TB/s; and the launch floor, a one-element in-place add timed warm
      the same way;
   4. with --shapes, where its wrappers can launch at a given shape
-     (ShiftFlux.at, EdgeCSR.at), times shift.rw, shift.flux and the wsum
-     transfers (the tet's too) at every shape their kernels are built
-     for, at every level, warm.
+     (ShiftFlux.at, EdgeCSR.at), times shift.rw, shift.flux, edge_csr.rw
+     and the wsum transfers (the tets' too) at every shape their kernels
+     are built for, at every level, warm, and keeps each rw shape's
+     output.
 Then the main process prints each side's times and shares and whether
-the two trees' outputs are bit-equal. Needs a CUDA device. Prints the
-card's name and power limit.
+the two trees' outputs are bit-equal (every rw shape's against the
+parent's rw kernel). Needs a CUDA device. Prints the card's name and
+power limit.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import re
 import statistics
 import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -62,12 +67,23 @@ DTYPES = ("fp32", "bf16", "fp64")
 TREE = Path(__file__).resolve().parents[2]
 WORKER_TIMEOUT_S = 900
 RECORD = "KERNEL_AB "
-# the tet whose transfers are timed beside the flagship's ('window's and
-# `auto`'s workload on unstructured meshes): 64^3 nodes, 4 levels, so that
-# its levels span the full level (262,144 prolongation rows) down to
-# chip_smoke.py's 32^3 tet's (32,768 rows at level 1)
-TET = (64, 64, 64, 4)
-TET_SUFFIX = ".tet64"
+# the tets whose CSRs are timed beside the flagship's ('window's and
+# `auto`'s workload on unstructured meshes), suffix -> (generator spec,
+# seed), each renumbered by RCM (renumber_hierarchy) as the CLI's
+# --renumber orders it: 64^3 nodes, 4 levels, so that its levels span the
+# full level (262,144 rows) down to chip_smoke.py's 32^3 tet's (32,768 at
+# level 1); and the tet flagship's generator (bench/tet_flagship.py;
+# renumbered here without its round trip through files, so some edges
+# keep the other orientation)
+TETS = {".tet64": ((64, 64, 64, 4), 0), ".tetflag": ((68, 64, 70, 4), 1)}
+# CSR plan fields kept per level in a tet's .npz
+PLAN_KEYS = ("num_rows", "num_cols", "row_ptr", "owner", "col", "w")
+# level 0's flux CSR is also timed with each row cut to its first FIRST
+# entries (suffix FIRST_SUFFIX), the box's row length: the row kernel's
+# time per entry there against the full rows' tests whether the row
+# length itself slows it down
+FIRST = 6
+FIRST_SUFFIX = ".first6"
 
 
 def card() -> str:
@@ -169,8 +185,9 @@ def stage_rows(dt, lv, splan, cplan, nc64, q64, dev):
     ]
 
 
-def level_rows(levels, state):
-    """shift.rw and shift.flux at every level and the wsum transfers at
+def level_rows(levels, flux, state):
+    """shift.rw and shift.flux at every level, edge_csr.rw on each level's
+    flux CSR (flux: [(suffix, level, CSR)]) and the wsum transfers at
     every level that has them: (name, level, kernel, plain, bytes); state
     (n, seed) -> a (5, n) state in the levels' dtype."""
     from mgcfd_tpu_torch.kernels import shift
@@ -187,7 +204,25 @@ def level_rows(levels, state):
                          lambda m=mode, sh=sh, q=q: shift.shift_plain(m, sh,
                                                                       q),
                          sz * n * (5 + wrows * D + 5)))
-    return rows + wsum_rows(flagship_transfers(levels), state)
+    return rows + rw_rows(flux, state) \
+        + wsum_rows(flagship_transfers(levels), state)
+
+
+def rw_rows(flux, state):
+    """edge_csr.rw on each (suffix, level, CSR): (name, level, kernel,
+    plain, bytes), the bytes chip_smoke.py counts (row_ptr, col, three
+    weight rows, the state read and the sums written)."""
+    from mgcfd_tpu_torch.kernels import edge_csr
+    rows = []
+    for suffix, lev, csr in flux:
+        sz = csr.w.element_size()
+        q = state(csr.num_cols, 31 + lev)
+        rows.append((f"edge_csr.rw{suffix}", lev,
+                     lambda c=csr, q=q: edge_csr.rw(c, q),
+                     lambda c=csr, q=q: edge_csr.edge_csr_plain("rw", c, q),
+                     4 * (csr.num_rows + 1) + (4 + 3 * sz) * csr.num_entries
+                     + sz * 10 * csr.num_rows))
+    return rows
 
 
 def flagship_transfers(levels):
@@ -197,47 +232,90 @@ def flagship_transfers(levels):
             for lev, L in enumerate(levels) if L.restrict_csr is not None]
 
 
-def tet_plans(path: Path):
-    """The tet's restriction and prolongation CSR plans of each level, as
-    the solver builds them: [(level, restriction, prolongation)], each a
-    CSRPlan-like namespace. Made once (TET, seed 0) into path, an .npz
-    that every side loads, so that both trees get the same arrays."""
+def make_tet(path: Path, spec, seed: int) -> None:
+    """Generate a tet hierarchy (spec, seed), renumber it (RCM) and write
+    each level's flux CSR plan and each level's restriction and
+    prolongation plans, as the solver builds them, into path, an .npz that
+    every side loads, so that both trees get the same arrays. Nothing is
+    done if path exists."""
+    if path.exists():
+        return
     import numpy as np
-    keys = ("num_rows", "num_cols", "row_ptr", "owner", "col", "w")
-    if not path.exists():
-        from mgcfd_tpu_torch.mesh import generate_unstructured_hierarchy
-        from mgcfd_tpu_torch.prep.csr import (build_prolong_csr,
-                                              build_restrict_csr)
-        tmesh = generate_unstructured_hierarchy(*TET, seed=0)
-        arrays = {}
-        for lev in range(tmesh.num_levels - 1):
-            fine, coarse = tmesh.levels[lev], tmesh.levels[lev + 1]
-            for what, plan in (
-                    ("r", build_restrict_csr(fine.mg_mapping, fine.num_nodes,
-                                             coarse.num_nodes)[0]),
-                    ("p", build_prolong_csr(fine, coarse))):
-                for k in keys:
-                    arrays[f"{lev}{what}_{k}"] = np.asarray(getattr(plan, k))
-        tmp = path.with_suffix(".tmp.npz")
-        np.savez(tmp, **arrays)
-        tmp.replace(path)
+    from mgcfd_tpu_torch.mesh import generate_unstructured_hierarchy
+    from mgcfd_tpu_torch.prep.csr import (build_flux_csr, build_prolong_csr,
+                                          build_restrict_csr)
+    from mgcfd_tpu_torch.prep.renumber import renumber_hierarchy
+    tmesh = renumber_hierarchy(generate_unstructured_hierarchy(*spec,
+                                                               seed=seed))
+    plans = {}
+    for lev, fine in enumerate(tmesh.levels):
+        plans[f"{lev}f"] = build_flux_csr(fine)
+        if lev == 0:
+            plans["0t"] = first_entries(plans["0f"], FIRST)
+        if lev + 1 < tmesh.num_levels:
+            coarse = tmesh.levels[lev + 1]
+            plans[f"{lev}r"] = build_restrict_csr(
+                fine.mg_mapping, fine.num_nodes, coarse.num_nodes)[0]
+            plans[f"{lev}p"] = build_prolong_csr(fine, coarse)
+    arrays = {f"{pre}_{k}": np.asarray(getattr(plan, k))
+              for pre, plan in plans.items() for k in PLAN_KEYS}
+    tmp = path.with_suffix(".tmp.npz")
+    np.savez(tmp, **arrays)
+    tmp.replace(path)
+
+
+def first_entries(plan, k: int):
+    """A CSR plan with each row cut to its first k entries."""
+    import numpy as np
+    lens = np.diff(plan.row_ptr)
+    pos = np.arange(plan.num_entries) - np.repeat(plan.row_ptr[:-1], lens)
+    keep = pos < k
+    row_ptr = np.zeros_like(plan.row_ptr)
+    np.cumsum(np.minimum(lens, k), out=row_ptr[1:])
+    return SimpleNamespace(num_rows=plan.num_rows, num_cols=plan.num_cols,
+                           row_ptr=row_ptr, owner=plan.owner[keep],
+                           col=plan.col[keep], w=plan.w[:, keep])
+
+
+def tet_plans(path: Path):
+    """make_tet's plans, each a CSRPlan-like namespace: ([(suffix, level,
+    flux CSR)], [(level, restriction, prolongation)]); the suffix is ""
+    for each level's flux CSR and FIRST_SUFFIX for level 0's cut to its
+    first FIRST entries a row."""
+    import numpy as np
     z = np.load(path)
 
     def plan(pre):
-        d = {k: z[f"{pre}_{k}"] for k in keys}
+        d = {k: z[f"{pre}_{k}"] for k in PLAN_KEYS}
         d["num_rows"], d["num_cols"] = int(d["num_rows"]), int(d["num_cols"])
         return SimpleNamespace(**d, num_entries=int(d["col"].shape[0]))
 
-    levels = sorted({int(k.split("r_")[0]) for k in z.files if "r_" in k})
-    return [(lev, plan(f"{lev}r"), plan(f"{lev}p")) for lev in levels]
+    pres = {re.match(r"(\d+[frpt])_", k).group(1) for k in z.files}
+    levels = sorted(int(p[:-1]) for p in pres if p.endswith("f"))
+    return ([("", lev, plan(f"{lev}f")) for lev in levels]
+            + [(FIRST_SUFFIX, 0, plan("0t"))],
+            [(lev, plan(f"{lev}r"), plan(f"{lev}p")) for lev in levels
+             if f"{lev}r" in pres])
 
 
-def tet_transfers(plans, dt, dev):
-    """(name suffix, level, restriction CSR, prolongation CSR) on the card
-    for each of tet_plans' levels."""
+def tet_path(tets: Path, suffix: str) -> Path:
+    spec, seed = TETS[suffix]
+    return tets / f"tet_{'x'.join(map(str, spec))}_s{seed}_rcm_f{FIRST}.npz"
+
+
+def tet_csrs(tets: Path, dt, dev):
+    """Every TETS tet's CSRs on the card: ([(suffix, level, flux CSR)],
+    [(suffix, level, restriction CSR, prolongation CSR)])."""
     from mgcfd_tpu_torch.kernels import DeviceCSR
-    return [(TET_SUFFIX, lev, DeviceCSR.from_plan(r, dev, dt),
-             DeviceCSR.from_plan(p, dev, dt)) for lev, r, p in plans]
+    flux, transfers = [], []
+    for suffix in TETS:
+        fplans, tplans = tet_plans(tet_path(tets, suffix))
+        flux += [(suffix + cut, lev, DeviceCSR.from_plan(f, dev, dt))
+                 for cut, lev, f in fplans]
+        transfers += [(suffix, lev, DeviceCSR.from_plan(r, dev, dt),
+                       DeviceCSR.from_plan(p, dev, dt))
+                      for lev, r, p in tplans]
+    return flux, transfers
 
 
 def wsum_rows(transfers, state):
@@ -259,22 +337,31 @@ def wsum_rows(transfers, state):
     return rows
 
 
-def shape_sweep(label, tag, levels, transfers, state, smi) -> None:
+def shape_sweep(label, tag, levels, flux, transfers, state, smi,
+                outputs, only: str = "") -> None:
     """shift.rw and shift.flux at every shape their kernel is built for
     (rw: with and without a thread per (node, channel); both: with and
-    without the span loop unrolled) and the wsum transfers with and
-    without a thread per (row, channel), with plain, chunked and batched
-    loads, at every level, warm; the shape each C entry point picks
-    marked, and any output that differs from the chosen shape's flagged
-    (flux mode's unrolled and looped forms differ in the last bits)."""
+    without the span loop unrolled), edge_csr.rw at each of its shapes
+    (each output kept in outputs, to be held to the other tree's rw
+    kernel) and the wsum transfers with and without a thread per (row,
+    channel), with plain, chunked and batched loads, at every level,
+    warm; the shape each C entry point picks marked, and any output that
+    differs from the chosen shape's flagged (flux mode's unrolled and
+    looped forms differ in the last bits). Only the kernels whose names
+    start with `only`."""
     import torch
     from mgcfd_tpu_torch.kernels import edge_csr, shift
 
-    def sweep(what, kern, run, shapes, chosen, name):
+    def sweep(what, kern, run, shapes, chosen, name, keep=None):
+        if not kern.name.startswith(only):
+            return
         want = kern(*run)
         got = []
         for s in shapes:
-            same = torch.equal(kern.at(*run, *s), want)
+            out = kern.at(*run, *s)
+            same = torch.equal(out, want)
+            if keep is not None:
+                outputs[f"{keep} {tag} shape={name(s)}"] = out.cpu()
             ms = event_ms(lambda s=s: kern.at(*run, *s), REPS)
             got.append(f"{name(s)}{'*' if s == chosen else ''} "
                        f"{ms * 1e3:.2f}{'' if same else ' DIFFERS'}")
@@ -291,6 +378,13 @@ def shape_sweep(label, tag, levels, transfers, state, smi) -> None:
                    for u in (False, True)], (kern.shape(sh),),
                   lambda s: f"{'split' if s[0].split else 'node'}"
                             f"{'+unroll' if s[0].unroll else ''}")
+    for suffix, lev, csr in flux:
+        q = state(csr.num_cols, 31 + lev)
+        sweep(f"rw{suffix} L{lev} rows={csr.num_rows} "
+              f"entries={csr.num_entries}", edge_csr.rw, (csr, q),
+              [(s,) for s in edge_csr.RW_SHAPES], (edge_csr.rw.shape(csr),),
+              lambda s: edge_csr.RW_SHAPES[s[0]],
+              keep=f"edge_csr.rw{suffix} L{lev}")
     loads = {edge_csr.PLAIN: "plain", edge_csr.CHUNKED: "chunked",
              edge_csr.BATCHED: "batched"}
     for suffix, lev, rcsr, pcsr in transfers:
@@ -315,7 +409,7 @@ def run_side(args) -> int:
     from mgcfd_tpu_torch.bench.flagship import flagship_mesh
     from mgcfd_tpu_torch.core.config import SolverConfig
     from mgcfd_tpu_torch.core.constants import far_field_state
-    from mgcfd_tpu_torch.kernels import build, shift
+    from mgcfd_tpu_torch.kernels import DeviceCSR, build, edge_csr, shift
     from mgcfd_tpu_torch.ops.tops import build_dense_boundary_wall
     from mgcfd_tpu_torch.prep.csr import build_flux_csr
     from mgcfd_tpu_torch.prep.shift import build_shift_plan
@@ -332,7 +426,7 @@ def run_side(args) -> int:
     build.library()
 
     mesh = flagship_mesh()
-    tplans = tet_plans(args.tet)
+    box_flux = [build_flux_csr(L) for L in mesh.levels]
     lv = mesh.levels[0]
     n = lv.num_nodes
     dev = torch.device("cuda")
@@ -361,9 +455,13 @@ def run_side(args) -> int:
                 + 0.05 * r.standard_normal((5, m))
             return torch.as_tensor(x).to(dev, dt)
 
-        tets = tet_transfers(tplans, dt, dev)
+        flux = [("", lev, DeviceCSR.from_plan(f, dev, dt))
+                for lev, f in enumerate(box_flux)]
+        tflux, tets = tet_csrs(args.tets, dt, dev)
+        flux += tflux
         rows = stage_rows(dt, lv, splan, cplan, nc64, q64, dev) \
-            + level_rows(levels, state) + wsum_rows(tets, state)
+            + level_rows(levels, flux, state) + wsum_rows(tets, state)
+        rows = [r for r in rows if r[0].startswith(args.only)]
         for name, lev, kfn, pfn, nbytes in rows:
             got, again, want = kfn(), kfn(), pfn()
             torch.cuda.synchronize()
@@ -384,10 +482,11 @@ def run_side(args) -> int:
                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                    "mbytes": nbytes / 1e6, "card": smi}
             print(RECORD + json.dumps(rec), flush=True)
-        if args.shapes and hasattr(shift.rw, "at"):
-            shape_sweep(label, tag, levels,
-                        flagship_transfers(levels) + tets, state, smi)
-        del levels, tets
+        if args.shapes and hasattr(edge_csr, "RW_SHAPES"):
+            shape_sweep(label, tag, levels, flux,
+                        flagship_transfers(levels) + tets, state, smi,
+                        outputs, args.only)
+        del levels, flux, tets
     if args.save is not None:
         torch.save(outputs, args.save)
     return 0
@@ -452,23 +551,28 @@ def run_turns(args) -> int:
     work = TREE / "build" / "kernel_ab"   # the outputs, tens of MB each
     for d in (out, work):
         d.mkdir(parents=True, exist_ok=True)
-    tet = work / "tet_transfers.npz"
-    with ThreadPoolExecutor(len(trees) + 1) as pool:
-        made = pool.submit(tet_plans, tet)
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(len(TETS), mp_context=spawn) as procs, \
+            ThreadPoolExecutor(len(trees)) as pool:
+        made = [procs.submit(make_tet, tet_path(work, suffix), *TETS[suffix])
+                for suffix in TETS]
         for line in pool.map(prebuild, trees.values()):
             print(line, flush=True)
-        made.result()
+        for m in made:
+            m.result()
     records, saved, seen = [], {}, set()
     for turn, label in enumerate(order):
         save = work / f"outputs_{label}.pt"
         cmd = [sys.executable, __file__, "--side", "--tree",
                str(trees[label]), "--label", label, "--save", str(save),
-               "--out", str(out), "--tet", str(tet)]
+               "--out", str(out), "--tets", str(work)]
         if label not in seen:
             cmd.append("--ptxas")
             seen.add(label)
         if args.shapes:
             cmd.append("--shapes")
+        if args.only:
+            cmd += ["--only", args.only]
         r = subprocess.run(cmd, capture_output=True, text=True,
                            timeout=WORKER_TIMEOUT_S)
         sys.stderr.write(r.stderr[-4000:])
@@ -487,8 +591,9 @@ def run_turns(args) -> int:
         a = torch.load(saved["new"])
         b = torch.load(saved["parent"])
         for key in a:
-            same = float((a[key] == b[key]).double().mean())
-            diff = float((a[key].double() - b[key].double()).abs().max())
+            want = b[key.split(" shape=")[0]]
+            same = float((a[key] == want).double().mean())
+            diff = float((a[key].double() - want.double()).abs().max())
             print(f"{key}: new against parent, bit-equal {same:.4f}, max "
                   f"abs diff {diff:.3e}")
     return 0
@@ -502,14 +607,17 @@ def main(argv=None) -> int:
                    help="where the ptxas reports go (default "
                    "build/kernel_ab, where the outputs go)")
     p.add_argument("--shapes", action="store_true",
-                   help="also time the span kernel at every launch shape")
+                   help="also time the span, rw and wsum kernels at every "
+                   "launch shape")
+    p.add_argument("--only", default="", metavar="NAME",
+                   help="only the kernels whose names start with NAME, "
+                   "for example edge_csr.rw")
     p.add_argument("--side", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--tree", type=Path, default=TREE, help=argparse.SUPPRESS)
     p.add_argument("--label", default="new", help=argparse.SUPPRESS)
     p.add_argument("--ptxas", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--save", type=Path, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--tet", type=Path,
-                   default=TREE / "build" / "kernel_ab" / "tet_transfers.npz",
+    p.add_argument("--tets", type=Path, default=TREE / "build" / "kernel_ab",
                    help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 

@@ -23,10 +23,25 @@
 // (304,640 rows, 748,008 entries) 14.1 MB, 4.2 us. chip_smoke.py
 // recomputes the bounds from each run's tensors.
 // What the design does about it:
-//   - flux and rw modes: one thread per owner row; the 6 MB state stays
-//     in the 50 MB L2, so the neighbour gathers hit the cache; weights and
-//     indices are streamed once. Both reach half their byte bound at
-//     every dtype and are left as the first port wrote them.
+//   - flux mode: one thread per owner row; the 6 MB state stays in the 50
+//     MB L2, so the neighbour gathers hit the cache; weights and indices
+//     are streamed once. It reaches half its byte bound on the box at
+//     every dtype and is left as the first port wrote it.
+//   - rw mode: that row kernel too on the box's short rows (6 entries),
+//     at 0.7 of its byte bound at fp32. On the tet flagship's level 0 (15
+//     entries a row, RCM order; 86 MB at fp32, 25.8 us) it took 189-199
+//     us: a warp's loads of col and w at step h touch 32 rows ~15 entries
+//     apart, and the same rows cut to their first 6 entries take half the
+//     time per entry (bench/kernel_ab.py's .first6 rows). The C entry
+//     point now chooses a shape per CSR (choose_rw; kernels/edge_csr.py
+//     rw_shape mirrors it, chip_smoke.py holds the mirror to
+//     mgcfd_rw_shape): full levels of long rows take the tile
+//     (rw_tile_kernel), 59 us there at fp32 (share 0.44); thin levels take
+//     lane groups (rw_group_kernel), a warp's lanes on a row's consecutive
+//     entries, which also beat the row kernel on the box's thin levels.
+//     The tet's gathers stay uncoalesced in every shape (at 6 entries a
+//     row the row kernel takes twice the box's time per entry), so the
+//     tile stays at about half the byte bound's pace.
 //   - wsum mode (wsum_row_kernel, wsum_split_kernel): a thread per row,
 //     as first ported, waited on each entry's col, then its gathers, on
 //     149 blocks for the level-0 restriction. The C entry point now
@@ -87,6 +102,227 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   for (int c = 0; c < 5; ++c) out[c * n_rows + i] = to_storage<S>(acc[c]);
+}
+
+// rw mode on long rows. The row kernel above (kRwRow) gives each row a
+// thread that walks its entries one after another, so at each step a
+// warp's loads of col and w touch 32 rows' entries, one sector each.
+// The two shapes below read each row's entries with neighbouring lanes
+// on neighbouring entries instead, and still add each row's values in
+// CSR order from zero, so every shape gives the row kernel's bits.
+
+// the value entry (q_i, q_j, w0, w1, w2) adds to its row in channel c:
+// (((q_i + q_j) + w0) + w1) + w2, as the row kernel's sum parses
+template <typename C>
+__device__ __forceinline__ C rw_value(C qi, C qj, C w0, C w1, C w2) {
+  return qi + qj + w0 + w1 + w2;
+}
+
+// entries a tile stages per chunk: 20,480 bytes of values at fp32 and
+// bf16, 1024 entries (four a thread); 512 at fp64 (two a thread)
+template <typename C>
+__host__ __device__ constexpr int rw_chunk_entries() {
+  return 4096 / static_cast<int>(sizeof(C));
+}
+
+// kRwTile: a block owns kThreads consecutive rows, one a thread, and
+// walks their contiguous entries [row_ptr[r0], row_ptr[r0 + kThreads]) in
+// chunks of E. Per chunk: each row's thread marks its entries with its
+// row; the block's threads take the chunk's entries c0 + t, c0 + t +
+// kThreads, ... (coalesced col and w loads, all of a thread's loads and
+// gathers issued before its values), add each to its row's own values,
+// staged once in shared memory, and store the five values; then each
+// row's thread adds its entries in CSR order, carrying its sums from chunk
+// to chunk. Two barriers a chunk.
+template <typename S>
+__global__ void __launch_bounds__(kThreads)
+    rw_tile_kernel(const int* __restrict__ row_ptr,
+                   const int* __restrict__ col, const S* __restrict__ w,
+                   int64_t n_half, const S* __restrict__ x_own,
+                   const S* __restrict__ x_nbr, int64_t n_nbr,
+                   S* __restrict__ out, int64_t n_rows) {
+  using C = compute_t<S>;
+  constexpr int B = kThreads;
+  constexpr int E = rw_chunk_entries<C>();
+  constexpr int K = E / kThreads;
+  __shared__ C sq[5 * B];            // the tile's own rows, channel-major
+  __shared__ C sv[5 * E];            // the chunk's values, channel-major
+  __shared__ unsigned char srow[E];  // each entry's row in the tile
+  const int t = threadIdx.x;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * B;
+  const int64_t i = r0 + t;
+  const bool own = i < n_rows;
+  const int64_t r1 = r0 + B < n_rows ? r0 + B : n_rows;
+  const int e0 = row_ptr[r0], e1 = row_ptr[r1];
+  const int h0 = own ? row_ptr[i] : e1, h1 = own ? row_ptr[i + 1] : e1;
+  for (int c = 0; c < 5; ++c)
+    sq[c * B + t] = own ? to_compute(x_own[c * n_rows + i]) : C(0);
+  C acc[5];
+  for (int c = 0; c < 5; ++c) acc[c] = C(0);
+  for (int c0 = e0; c0 < e1; c0 += E) {
+    const int c1 = c0 + E < e1 ? c0 + E : e1;
+    const int a0 = h0 > c0 ? h0 : c0, a1 = h1 < c1 ? h1 : c1;
+    for (int h = a0; h < a1; ++h)
+      srow[h - c0] = static_cast<unsigned char>(t);
+    __syncthreads();  // rows marked, the tile staged, the last chunk read
+    int64_t j[K];
+    C w0[K], w1[K], w2[K], xj[K][5];
+    for (int k = 0; k < K; ++k) {
+      const int h = c0 + t + k * kThreads;
+      const bool in = h < c1;
+      j[k] = in ? col[h] : 0;
+      w0[k] = in ? to_compute(w[h]) : C(0);
+      w1[k] = in ? to_compute(w[n_half + h]) : C(0);
+      w2[k] = in ? to_compute(w[2 * n_half + h]) : C(0);
+    }
+    for (int k = 0; k < K; ++k)
+      for (int c = 0; c < 5; ++c)
+        xj[k][c] = c0 + t + k * kThreads < c1
+                       ? to_compute(x_nbr[c * n_nbr + j[k]])
+                       : C(0);
+    for (int k = 0; k < K; ++k) {
+      const int e = t + k * kThreads;
+      if (c0 + e < c1) {
+        const int r = srow[e];
+        for (int c = 0; c < 5; ++c)
+          sv[c * E + e] =
+              rw_value(sq[c * B + r], xj[k][c], w0[k], w1[k], w2[k]);
+      }
+    }
+    __syncthreads();  // the chunk's values are written
+    for (int h = a0; h < a1; ++h)
+      for (int c = 0; c < 5; ++c) acc[c] += sv[c * E + h - c0];
+  }
+  if (own)
+    for (int c = 0; c < 5; ++c) out[c * n_rows + i] = to_storage<S>(acc[c]);
+}
+
+// kRwGroup*: G lanes of a warp share a row and take its entries P = G * K
+// at a time, lane g entries base + g, base + G + g, ...: neighbouring
+// lanes on neighbouring entries. Each lane stores its entries' values in
+// its warp's slice of shared memory; after __syncwarp, lane g < 5 of the
+// group adds channel g's P values in CSR order into its sum. Every lane of
+// a warp makes as many passes as the warp's longest row needs, so all
+// meet at each __syncwarp. No block barrier.
+template <typename S, int G, int K>
+__global__ void __launch_bounds__(kThreads)
+    rw_group_kernel(const int* __restrict__ row_ptr,
+                    const int* __restrict__ col, const S* __restrict__ w,
+                    int64_t n_half, const S* __restrict__ x_own,
+                    const S* __restrict__ x_nbr, int64_t n_nbr,
+                    S* __restrict__ out, int64_t n_rows) {
+  using C = compute_t<S>;
+  static_assert(G >= 5 && 32 % G == 0, "a group adds its five channels");
+  constexpr int P = G * K;          // entries a group takes per pass
+  constexpr int R = 32 / G;         // rows a warp
+  // a channel's slots in a warp's slice: each group's P, padded by one,
+  // so that the 5 R folding lanes of a warp read 5 R different banks
+  constexpr int L = R * (P + 1);
+  __shared__ C sv[kThreads / 32][5 * L];
+  const int lane = threadIdx.x & 31, g = lane % G, gi = lane / G;
+  C* v = sv[threadIdx.x >> 5];
+  const int64_t wr0 =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x - lane) / G;
+  const int64_t i = wr0 + gi;
+  int passes = 0;
+  for (int r = 0; r < R; ++r)
+    if (wr0 + r < n_rows) {
+      const int len = row_ptr[wr0 + r + 1] - row_ptr[wr0 + r];
+      const int p = (len + P - 1) / P;
+      passes = p > passes ? p : passes;
+    }
+  const bool own = i < n_rows;
+  const int hs = own ? row_ptr[i] : 0, he = own ? row_ptr[i + 1] : 0;
+  C co[5];
+  for (int c = 0; c < 5; ++c)
+    co[c] = own ? to_compute(x_own[c * n_rows + i]) : C(0);
+  C acc = C(0);  // channel g of row i, in lanes g < 5
+  for (int p = 0; p < passes; ++p) {
+    const int base = hs + p * P;
+    int64_t j[K];
+    C w0[K], w1[K], w2[K], xj[K][5];
+    for (int k = 0; k < K; ++k) {
+      const int h = base + k * G + g;
+      const bool in = h < he;
+      j[k] = in ? col[h] : 0;
+      w0[k] = in ? to_compute(w[h]) : C(0);
+      w1[k] = in ? to_compute(w[n_half + h]) : C(0);
+      w2[k] = in ? to_compute(w[2 * n_half + h]) : C(0);
+    }
+    for (int k = 0; k < K; ++k)
+      for (int c = 0; c < 5; ++c)
+        xj[k][c] = base + k * G + g < he
+                       ? to_compute(x_nbr[c * n_nbr + j[k]])
+                       : C(0);
+    for (int k = 0; k < K; ++k)
+      if (base + k * G + g < he)
+        for (int c = 0; c < 5; ++c)
+          v[c * L + gi * (P + 1) + k * G + g] =
+              rw_value(co[c], xj[k][c], w0[k], w1[k], w2[k]);
+    __syncwarp();  // the pass's values are written
+    if (g < 5) {
+      const int cnt = he - base < P ? he - base : P;
+      for (int s = 0; s < cnt; ++s) acc += v[g * L + gi * (P + 1) + s];
+    }
+    __syncwarp();  // the pass's values are read
+  }
+  if (own && g < 5) out[g * n_rows + i] = to_storage<S>(acc);
+}
+
+// the rw launch shapes: the row kernel, the tile, and lane groups of 8
+// lanes (one entry a lane per pass, or two). Groups of 16 lanes, tiles
+// with half the chunk and groups whose block walks 256 rows lost to these
+// on every level but the tet's coarsest (PERF.md section 6)
+enum RwShape : int64_t { kRwRow = 0, kRwTile = 1, kRwGroup8 = 2,
+                         kRwGroup8x2 = 3 };
+// rows of kRwLongRow entries or more on average are long (the tet's, 9-15
+// a row on its levels; the box's are 4-6)
+constexpr int64_t kRwLongRow = 10;
+
+// the rw shape for n_rows rows of n_half entries at storage type S. Thin
+// levels (below kThinBelow rows) leave the row kernel short of threads:
+// lane groups, two entries a lane on long rows. Full levels (kFullLevel
+// rows or more) of long rows take the tile, and so do full levels at fp64,
+// where the tile beat the row kernel on the box too (37.4-37.8 against
+// 40.9-41.0 us). Between the two (38,080 rows on both flagships) and on full levels
+// of short rows at fp32 and bf16 the row kernel was the fastest. From
+// sweeps of every shape on both flagships' levels and a 64^3 tet's
+// (bench/kernel_ab.py --shapes; PERF.md section 6).
+template <typename S>
+inline int64_t choose_rw(int64_t n_rows, int64_t n_half) {
+  const bool long_rows = n_half >= kRwLongRow * n_rows;
+  if (n_rows < kThinBelow) return long_rows ? kRwGroup8x2 : kRwGroup8;
+  if (n_rows >= kFullLevel && (long_rows || sizeof(S) == 8)) return kRwTile;
+  return kRwRow;
+}
+
+template <typename S>
+int launch_rw(int64_t shape, const int* rp, const int* cl, const S* wt,
+              int64_t n_half, const S* xo, const S* xn, int64_t n_nbr,
+              S* o, int64_t n_rows, cudaStream_t stream) {
+  switch (shape) {
+    case kRwRow:
+      edge_csr_kernel<S, kRw><<<blocks_for(n_rows), kThreads, 0, stream>>>(
+          rp, cl, wt, n_half, xo, xn, n_nbr, o, n_rows);
+      break;
+    case kRwTile:
+      rw_tile_kernel<S><<<blocks_for(n_rows), kThreads, 0, stream>>>(
+          rp, cl, wt, n_half, xo, xn, n_nbr, o, n_rows);
+      break;
+    case kRwGroup8:
+      rw_group_kernel<S, 8, 1>
+          <<<blocks_for(n_rows, kThreads / 8), kThreads, 0, stream>>>(
+              rp, cl, wt, n_half, xo, xn, n_nbr, o, n_rows);
+      break;
+    case kRwGroup8x2:
+      rw_group_kernel<S, 8, 2>
+          <<<blocks_for(n_rows, kThreads / 8), kThreads, 0, stream>>>(
+              rp, cl, wt, n_half, xo, xn, n_nbr, o, n_rows);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // a vector of NW 32-bit words: its load type, and its words
@@ -323,16 +559,14 @@ int launch(int64_t mode, const void* row_ptr, const void* col,
   const auto* xo = static_cast<const S*>(x_own);
   const auto* xn = static_cast<const S*>(x_nbr);
   auto* o = static_cast<S*>(out);
-  const unsigned blocks = blocks_for(n_rows);
   switch (mode) {
     case kFlux:
-      edge_csr_kernel<S, kFlux><<<blocks, kThreads, 0, stream>>>(
+      edge_csr_kernel<S, kFlux><<<blocks_for(n_rows), kThreads, 0, stream>>>(
           rp, cl, wt, n_half, xo, xn, n_nbr, o, n_rows);
       break;
     case kRw:
-      edge_csr_kernel<S, kRw><<<blocks, kThreads, 0, stream>>>(
-          rp, cl, wt, n_half, xo, xn, n_nbr, o, n_rows);
-      break;
+      return launch_rw<S>(choose_rw<S>(n_rows, n_half), rp, cl, wt, n_half,
+                          xo, xn, n_nbr, o, n_rows, stream);
     case kWsum:
       return launch_wsum<S>(choose_wsum<S>(n_rows, n_half), rp, cl, wt, xn,
                             n_nbr, o, n_rows, stream);
@@ -398,6 +632,37 @@ extern "C" int mgcfd_wsum_shape(int64_t dtype, int64_t n_rows,
         mgcfd::choose_wsum<decltype(tag)>(n_rows, n_half);
     shape[0] = s.split;
     shape[1] = s.loads;
+    return 0;
+  });
+}
+
+// rw mode at a given shape (0 row, 1 tile, 2 groups of 8 lanes, 3 groups
+// of 8 lanes two entries a lane, 4 groups of 16); the other arguments as
+// mgcfd_edge_csr's. Only bench/kernel_ab.py --shapes and chip_smoke.py
+// call it, to time and check every shape of the library the solver loads.
+extern "C" int mgcfd_rw_at(int64_t dtype, int64_t shape, const void* row_ptr,
+                           const void* col, const void* w, int64_t n_half,
+                           const void* x_own, const void* x_nbr,
+                           int64_t n_nbr, void* out, int64_t n_rows,
+                           void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return mgcfd::dispatch_dtype(dtype, [&](auto tag) {
+    using S = decltype(tag);
+    if (n_rows == 0) return 0;
+    return mgcfd::launch_rw<S>(
+        shape, static_cast<const int*>(row_ptr), static_cast<const int*>(col),
+        static_cast<const S*>(w), n_half, static_cast<const S*>(x_own),
+        static_cast<const S*>(x_nbr), n_nbr, static_cast<S*>(out), n_rows,
+        s);
+  });
+}
+
+// the shape mgcfd_edge_csr launches rw mode at for n_rows rows and n_half
+// entries, into shape[0]; launches nothing
+extern "C" int mgcfd_rw_shape(int64_t dtype, int64_t n_rows, int64_t n_half,
+                              int64_t* shape) {
+  return mgcfd::dispatch_dtype(dtype, [&](auto tag) {
+    shape[0] = mgcfd::choose_rw<decltype(tag)>(n_rows, n_half);
     return 0;
   });
 }

@@ -40,6 +40,8 @@ _SIGNATURES = {
     "mgcfd_shift_flux_shape": [_I, _I, _I, _I, _P],
     "mgcfd_wsum_at": [_I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P],
     "mgcfd_wsum_shape": [_I, _I, _I, _P],
+    "mgcfd_rw_at": [_I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P],
+    "mgcfd_rw_shape": [_I, _I, _I, _P],
     "mgcfd_shift_fused_stage": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _I, _P],
 }

@@ -3,8 +3,10 @@ csrc/edge_csr.cu, its wrapper and its plain PyTorch version.
 
 Replaces mgcfd_tpu/pallas/flux_window.py::_window_kernel (flux, rw and
 wsum modes). In wsum mode the kernel gives each (row, channel) or each
-row a thread and loads a row's entries plain, chunked or batched, as
-the C entry point chooses for the CSR; wsum_shape below mirrors that.
+row a thread and loads a row's entries plain, chunked or batched; in rw
+mode it gives each row a thread, or takes a tile's entries or a row's
+with neighbouring lanes; the C entry point chooses the shape for the
+CSR, and wsum_shape and rw_shape below mirror that.
 The wrapper launches the kernel for CUDA tensors and takes the plain
 version only for tensors on the CPU; anything else raises.
 Each role on the solver's path has its own wrapper instance with its own
@@ -37,6 +39,18 @@ FULL_LEVEL = 131072
 # how a wsum thread loads its row's entries (csrc/edge_csr.cu WsumLoads)
 PLAIN, CHUNKED, BATCHED = 0, 1, 2
 CHUNK = 4   # kChunk
+# rw mode's shapes (csrc/edge_csr.cu RwShape): a thread per row; a block
+# per 256-row tile; groups of 8 lanes a row, one or two entries a lane per
+# pass
+RW_ROW, RW_TILE, RW_GROUP8, RW_GROUP8X2 = range(4)
+RW_SHAPES = {RW_ROW: "row", RW_TILE: "tile", RW_GROUP8: "group8",
+             RW_GROUP8X2: "group8x2"}
+# rows of RW_LONG_ROW entries or more on average take a long-row shape
+RW_LONG_ROW = 10   # kRwLongRow
+# the tile's rows (kThreads) and the lane groups' (lanes a row, entries a
+# lane per pass)
+RW_TILE_ROWS = 256
+RW_GROUPS = {RW_GROUP8: (8, 1), RW_GROUP8X2: (8, 2)}
 _MIN_WEIGHT_ROWS = {"flux": 4, "rw": 3, "wsum": 1}
 
 
@@ -95,6 +109,20 @@ def wsum_shape(num_rows: int, num_entries: int,
                      loads=PLAIN if full64 else BATCHED)
 
 
+def rw_shape(num_rows: int, num_entries: int, dtype: torch.dtype) -> int:
+    """The rw kernel's shape: below THIN_BELOW rows lane groups, two
+    entries a lane on long rows (RW_LONG_ROW entries or more on average,
+    the tet's); from FULL_LEVEL rows on the tile for long rows, and at
+    fp64 for any; else a thread per row. The mirror of the C entry point's
+    choose_rw."""
+    long_rows = num_entries >= RW_LONG_ROW * num_rows
+    if num_rows < THIN_BELOW:
+        return RW_GROUP8X2 if long_rows else RW_GROUP8
+    if num_rows >= FULL_LEVEL and (long_rows or dtype == torch.float64):
+        return RW_TILE
+    return RW_ROW
+
+
 def _on_card(t: torch.Tensor) -> bool:
     return t.is_cuda
 
@@ -106,6 +134,12 @@ def compute_dtype(dtype: torch.dtype) -> torch.dtype:
     """The type the kernels compute in for a storage type: float32 for
     bfloat16, else the storage type itself."""
     return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def rw_chunk_entries(dtype: torch.dtype) -> int:
+    """Entries a tile stages per chunk (csrc/edge_csr.cu rw_chunk_entries):
+    4096 bytes over the compute type's size."""
+    return 4096 // compute_dtype(dtype).itemsize
 
 
 def complete8(q):
@@ -215,32 +249,48 @@ class EdgeCSR:
         self.launches += 1
         return out
 
-    def at(self, csr: DeviceCSR, x: torch.Tensor, shape: WsumShape):
-        """wsum mode at a given shape, for timing shapes."""
-        if self.mode != "wsum":
-            raise ValueError(f"{self.name}: shapes are for wsum mode")
-        check_operands(csr, x, "wsum")
+    def at(self, csr: DeviceCSR, x: torch.Tensor, shape):
+        """wsum mode at a WsumShape, or rw mode at an rw shape (RW_ROW,
+        ...), for timing and checking shapes."""
+        if self.mode not in ("wsum", "rw"):
+            raise ValueError(f"{self.name}: shapes are for wsum and rw "
+                             "modes")
+        check_operands(csr, x, self.mode)
         if not _on_card(x):
-            return edge_csr_plain("wsum", csr, x)
+            return edge_csr_plain(self.mode, csr, x)
         out = torch.empty((5, csr.num_rows), dtype=x.dtype, device=x.device)
-        rc = build.library().mgcfd_wsum_at(
-            build.dtype_code(x), int(shape.split), shape.loads,
-            csr.row_ptr.data_ptr(),
-            csr.col.data_ptr(), csr.w.data_ptr(), csr.num_entries,
-            x.data_ptr(), csr.num_cols, out.data_ptr(), csr.num_rows,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        lib, stream = build.library(), \
+            torch.cuda.current_stream(x.device).cuda_stream
+        if self.mode == "wsum":
+            rc = lib.mgcfd_wsum_at(
+                build.dtype_code(x), int(shape.split), shape.loads,
+                csr.row_ptr.data_ptr(), csr.col.data_ptr(), csr.w.data_ptr(),
+                csr.num_entries, x.data_ptr(), csr.num_cols, out.data_ptr(),
+                csr.num_rows, stream)
+        else:
+            rc = lib.mgcfd_rw_at(
+                build.dtype_code(x), shape, csr.row_ptr.data_ptr(),
+                csr.col.data_ptr(), csr.w.data_ptr(), csr.num_entries,
+                x.data_ptr(), x.data_ptr(), csr.num_cols, out.data_ptr(),
+                csr.num_rows, stream)
         build.check(rc, self.name)
         self.launches += 1
         return out
 
-    def shape(self, csr: DeviceCSR) -> WsumShape:
-        """The shape the C entry point picks for this CSR in wsum mode;
-        launches nothing."""
+    def shape(self, csr: DeviceCSR):
+        """The shape the C entry point picks for this CSR: a WsumShape in
+        wsum mode, an rw shape in rw mode; launches nothing."""
+        if self.mode not in ("wsum", "rw"):
+            raise ValueError(f"{self.name}: shapes are for wsum and rw "
+                             "modes")
         got = (ctypes.c_int64 * 2)()
-        rc = build.library().mgcfd_wsum_shape(
-            build.DTYPE_CODES[csr.w.dtype], csr.num_rows, csr.num_entries,
-            ctypes.addressof(got))
+        fn = build.library().mgcfd_wsum_shape if self.mode == "wsum" \
+            else build.library().mgcfd_rw_shape
+        rc = fn(build.DTYPE_CODES[csr.w.dtype], csr.num_rows,
+                csr.num_entries, ctypes.addressof(got))
         build.check(rc, self.name)
+        if self.mode == "rw":
+            return int(got[0])
         return WsumShape(split=bool(got[0]), loads=int(got[1]))
 
 
