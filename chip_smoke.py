@@ -69,20 +69,36 @@ What it does, in order, printing each step with the elapsed seconds:
      ('window') against fp64 plain, and fp32 and bf16 through run_batched
      against run as in 8; edge_csr's rw mode at every level and every rw
      shape at level 0, as on the box in 4, at fp64, fp32 and bf16;
- 13. times each V-cycle (fp32 beside bf16) and each kernel at fp32, fp64
+ 13. the unfused window stage and the monitor (mgcfd_tpu_torch/monitor/):
+     on the tet flagship, 'window' with fuse_window_stage=False at fp64,
+     fp32 and bf16, edge_csr.flux over level 0's whole owner CSR held to
+     its plain version, 18 flux and 18 rw launches a cycle and no
+     fused_stage, fp64 against the fused path on every level; then the
+     InstrumentedSolver on the tet flagship ('window') and the box
+     flagship ('pallas') at fp32: every (function, level) timed, its
+     calls equal to the launch counts, and measure_instrumented's kernels
+     by family equal to the launch counts, charging at least 98% of the
+     profiler's device time to the functions and the cycle's bookkeeping,
+     the state unchanged;
+     measure_production on one cycle of run on both flagships (device
+     time per function and level, hand kernels and eager ops apart); the
+     CLI's --monitor instrumented -o DIR/ --measure-ops -p FILE on the
+     32^3 tet's files, its three reports' headers those of the reference;
+ 14. times each V-cycle (fp32 beside bf16) and each kernel at fp32, fp64
      and bf16 (each held to its plain version at the tolerance of 4
      first) beside its bound, its plain version, a library call where
      one computes the same function, and the launch floor (a one-element
      in-place add, timed the same way); the tet flagship's level-0 kernels
-     in its RCM order and in the generator's shuffled order, and its
-     level-0 edge_csr.rw at bf16 and fp64 too; and ms per
+     in its RCM order and in the generator's shuffled order, its level-0
+     edge_csr.rw at bf16 and fp64 too, and its level-0 edge_csr.flux
+     (the unfused window stage's) at fp32, bf16 and fp64; and ms per
      cycle through run_batched beside run, with device busy per cycle
      from torch.profiler, for the box ('pallas' fp32 and bf16, 'window'
      fp32) and the tet flagship ('window' fp32, RCM and shuffled); the
      profiler's count of each kernel family's launches must equal the
      launch counts, in one replay (the capture's, added by run_batched)
      and in the cycles of run (the wrappers');
- 14. prints the card's name and power limit, one JSON line of kernel
+ 15. prints the card's name and power limit, one JSON line of kernel
      records, and last the JSON line {"ok": true, "device": {...}}.
 Any failed check raises, and the exit code is then non-zero. Without a
 CUDA device, or without the package beside this file, it exits non-zero
@@ -121,18 +137,8 @@ SOURCES = {"edge_csr": "mgcfd_tpu_torch/csrc/edge_csr.cu",
            "shift_flux": "mgcfd_tpu_torch/csrc/shift_flux.cu",
            "shift_fused_stage": "mgcfd_tpu_torch/csrc/shift_fused_stage.cu"}
 
-# operations per CSR entry, per span and per row, counted from the kernel
-# sources (each add, multiply, divide and square root is one operation)
-FLUX_OPS_PER_ENTRY = 80   # neighbour completion (~17) + flux_math (~63)
-FLUX_OPS_PER_ROW = 17     # owner completion
-FUSED_EXTRA_OPS_PER_ROW = 60  # boundary/wall flux, update, validity
-RW_OPS_PER_ENTRY = 25
-WSUM_OPS_PER_ENTRY = 10
-# the span kernels evaluate two edge values per node and span (one per
-# endpoint), each a neighbour completion and flux_math, or in rw mode 12
-# additions
-SHIFT_FLUX_OPS_PER_SPAN_ROW = 2 * FLUX_OPS_PER_ENTRY
-SHIFT_RW_OPS_PER_SPAN_ROW = 2 * 12
+# each kernel's bytes and operations: mgcfd_tpu_torch/monitor/costs.py,
+# which the monitor's cost file reads too
 
 # Tolerances of the kernel-against-plain checks, relative to each
 # channel's largest magnitude. fp64: both sides round each operation to
@@ -180,6 +186,19 @@ MG = {"edge_csr.wsum.restrict": 3, "edge_csr.wsum.prolong": 3}
 WANT_MAIN = {"shift.fused_stage": 18, "shift.rw": 18, **MG}
 WANT_WINDOW = {"fused_stage": 18, "edge_csr.rw": 18, **MG}
 WANT_UNFUSED = {"shift.flux": 18, "shift.rw": 18, **MG}
+WANT_WINDOW_UNFUSED = {"edge_csr.flux": 18, "edge_csr.rw": 18, **MG}
+# the instrumented solver's functions and the launch counter of the kernel
+# each call launches once, by path
+INSTRUMENTED_COUNTERS = {
+    "window": {"flux": "edge_csr.flux", "indirect_rw": "edge_csr.rw",
+               "restrict": "edge_csr.wsum.restrict",
+               "prolong": "edge_csr.wsum.prolong"},
+    "pallas": {"flux": "shift.flux", "indirect_rw": "shift.rw",
+               "restrict": "edge_csr.wsum.restrict",
+               "prolong": "edge_csr.wsum.prolong"}}
+# the measured device time charged to the solver functions against all the
+# profiler's device time in the same cycles
+MEASURED_SHARE_MIN = 0.98
 # kernel-against-plain tolerances by dtype; bf16 is held to one bf16
 # spacing per element instead (mgcfd_tpu_torch/validate/rounding.py)
 TOLS = {"torch.float64": TOL_FP64, "torch.float32": TOL_FP32}
@@ -889,12 +908,6 @@ def launch_floor_ms(dev) -> float:
     return device_ms(lambda: one.add_(1))
 
 
-def csr_bytes(csr, wrows: int, sz: int) -> int:
-    """Bytes of a CSR's row_ptr, col and `wrows` weight rows."""
-    return 4 * (csr.num_rows + 1) + 4 * csr.num_entries \
-        + sz * wrows * csr.num_entries
-
-
 def sparse_csr(csr):
     """The CSR's first weight row as a torch sparse CSR matrix."""
     import torch
@@ -1027,7 +1040,7 @@ def check_library(name: str, lfn, pfn, dt) -> None:
     check_cases([(f"{name} library call", lfn().T.contiguous(), pfn())], dt)
 
 
-def window_rows(W0, W1, q, old, fac, res1, run: str, transfer_run: str):
+def window_rows(W0, q, old, fac, res1, run: str, transfer_run: str):
     """time_rows rows of the CSR kernels at level 0 of a 'window' solver:
     fused_stage and edge_csr.rw (launches from the `run` path's run), the
     restriction and the prolongation (from `transfer_run`'s)."""
@@ -1035,9 +1048,9 @@ def window_rows(W0, W1, q, old, fac, res1, run: str, transfer_run: str):
     from mgcfd_tpu_torch.kernels import edge_csr
     from mgcfd_tpu_torch.kernels.fused_stage import (fused_stage,
                                                      fused_stage_plain)
+    from mgcfd_tpu_torch.monitor.costs import edge_csr_cost, fused_stage_cost
     plain = edge_csr.edge_csr_plain
     sz = q.element_size()
-    n0, n1 = W0.num_nodes, W1.num_nodes
     sp_r, sp_p = sparse_csr(W0.restrict_csr), sparse_csr(W0.prolong_csr)
     xf_t, rc_t = q.T.contiguous(), res1.T.contiguous()
     lib_crw = csr_rw_library(W0.csr, q)
@@ -1050,24 +1063,19 @@ def window_rows(W0, W1, q, old, fac, res1, run: str, transfer_run: str):
          lambda: edge_csr.restrict(W0.restrict_csr, q),
          lambda: plain("wsum", W0.restrict_csr, q),
          lambda: torch.sparse.mm(sp_r, xf_t),
-         csr_bytes(W0.restrict_csr, 1, sz) + sz * 5 * (n0 + n1),
-         WSUM_OPS_PER_ENTRY * W0.restrict_csr.num_entries),
+         *edge_csr_cost("wsum", W0.restrict_csr, sz)),
         ("edge_csr.wsum.prolong", "edge_csr", transfer_run,
          lambda: edge_csr.prolong(W0.prolong_csr, res1),
          lambda: plain("wsum", W0.prolong_csr, res1),
          lambda: torch.sparse.mm(sp_p, rc_t),
-         csr_bytes(W0.prolong_csr, 1, sz) + sz * 5 * (n1 + n0),
-         WSUM_OPS_PER_ENTRY * W0.prolong_csr.num_entries),
+         *edge_csr_cost("wsum", W0.prolong_csr, sz)),
         ("fused_stage", "fused_stage", run,
          lambda: fused_stage(W0.csr, W0.nc, q, old, fac)[0],
          lambda: fused_stage_plain(W0.csr, W0.nc, q, old, fac)[0], None,
-         csr_bytes(W0.csr, 4, sz) + sz * n0 * (5 + 5 + 1 + 11 + 5) + 4,
-         FLUX_OPS_PER_ENTRY * W0.csr.num_entries
-         + (FLUX_OPS_PER_ROW + FUSED_EXTRA_OPS_PER_ROW) * n0),
+         *fused_stage_cost(W0.csr, sz)),
         ("edge_csr.rw", "edge_csr", run,
          lambda: edge_csr.rw(W0.csr, q), lambda: plain("rw", W0.csr, q),
-         lib_crw, csr_bytes(W0.csr, 3, sz) + sz * n0 * 10,
-         RW_OPS_PER_ENTRY * W0.csr.num_entries),
+         lib_crw, *edge_csr_cost("rw", W0.csr, sz)),
     ]
 
 
@@ -1079,15 +1087,15 @@ def kernel_records(s_main, s_win, spill_csr, runs, card_label: str):
     the flux and the stages have none (nonlinear in q)."""
     import torch
     from mgcfd_tpu_torch.kernels import edge_csr, shift
+    from mgcfd_tpu_torch.monitor.costs import (edge_csr_cost, shift_cost,
+                                               shift_fused_stage_cost)
     dt = s_main.dtype
     M0 = s_main.dmesh.levels[0]
     q = s_main.state["variables"][0]
     old = q + 1e-6 * q
     fac = torch.full_like(M0.volumes, 1e-3)
     sz = q.element_size()
-    n0 = M0.num_nodes
     sh = M0.shift
-    D = len(sh.deltas)
     # the spill edges of the one-span level 0, in this dtype
     spill = dataclasses.replace(spill_csr, w=spill_csr.w.to(dt))
     lib_srw = shift_rw_library(sh, q)
@@ -1097,23 +1105,19 @@ def kernel_records(s_main, s_win, spill_csr, runs, card_label: str):
         ("shift.fused_stage", "shift_fused_stage", "main",
          lambda: shift.fused_stage(sh, M0.nc, q, old, fac)[0],
          lambda: shift.shift_fused_stage_plain(sh, M0.nc, q, old, fac)[0],
-         None, sz * n0 * (5 + 4 * D + 5 + 1 + 11 + 5) + 4,
-         (SHIFT_FLUX_OPS_PER_SPAN_ROW * D + FLUX_OPS_PER_ROW
-          + FUSED_EXTRA_OPS_PER_ROW) * n0),
+         None, *shift_fused_stage_cost(sh, sz)),
         ("shift.rw", "shift_flux", "main", lambda: shift.rw(sh, q),
          lambda: shift.shift_plain("rw", sh, q), lib_srw,
-         sz * n0 * (5 + 3 * D + 5), SHIFT_RW_OPS_PER_SPAN_ROW * D * n0),
+         *shift_cost("rw", sh, sz)),
         ("shift.flux", "shift_flux", "unfused", lambda: shift.flux(sh, q),
          lambda: shift.shift_plain("flux", sh, q), None,
-         sz * n0 * (5 + 4 * D + 5),
-         (SHIFT_FLUX_OPS_PER_SPAN_ROW * D + FLUX_OPS_PER_ROW) * n0),
-        *window_rows(s_win.dmesh.levels[0], s_win.dmesh.levels[1], q, old,
-                     fac, s_main.state["residuals"][1], "window", "main"),
+         *shift_cost("flux", sh, sz)),
+        *window_rows(s_win.dmesh.levels[0], q, old, fac,
+                     s_main.state["residuals"][1], "window", "main"),
         ("edge_csr.flux", "edge_csr", "spill",
          lambda: edge_csr.flux(spill, q),
          lambda: edge_csr.edge_csr_plain("flux", spill, q), None,
-         csr_bytes(spill, 4, sz) + sz * n0 * 10,
-         FLUX_OPS_PER_ENTRY * spill.num_entries + FLUX_OPS_PER_ROW * n0),
+         *edge_csr_cost("flux", spill, sz)),
     ]
     return time_rows(rows, runs, dt, launch_floor_ms(q.device), card_label)
 
@@ -1129,13 +1133,188 @@ def tet_records(solvers, runs, card_label: str, only: str | None = None):
     for suffix, s in solvers.items():
         W0 = s.dmesh.levels[0]
         q = s.state["variables"][0]
-        rows = window_rows(W0, s.dmesh.levels[1], q, q + 1e-6 * q,
+        rows = window_rows(W0, q, q + 1e-6 * q,
                            torch.full_like(W0.volumes, 1e-3),
                            s.state["residuals"][1], suffix, suffix)
         rows = [r for r in rows if only in (None, r[0])]
         records += time_rows(rows, runs, s.dtype, launch_floor_ms(q.device),
                              card_label, suffix)
     return records
+
+
+def kernel_family(name: str):
+    """The family of a hand-written kernel's profiler name, else None."""
+    import re
+    m = re.search(r"mgcfd::(\w+)<", name)
+    return SYMBOL_FAMILY.get(m.group(1)) if m else None
+
+
+def hand_split(rec: dict):
+    """(launches by family, hand-kernel us, eager-kernel us, eager count)
+    of one measured record {"kernels": {name: [count, us]}}."""
+    fams, hand_us, eager_us, eager_n = {}, 0.0, 0.0, 0
+    for kname, (count, us) in rec["kernels"].items():
+        fam = kernel_family(kname)
+        if fam is None:
+            eager_us += us
+            eager_n += count
+        else:
+            fams[fam] = fams.get(fam, 0) + count
+            hand_us += us
+    return fams, hand_us, eager_us, eager_n
+
+
+def check_instrumented(ins, what: str, cycles: int) -> None:
+    """An InstrumentedSolver for `cycles` cycles with the launch counts
+    set to 0 just before: every (function, level) of the walk timed,
+    calls equal to the launch counters of the kernels each call launches
+    once; then measure_instrumented over one more cycle: the kernels it
+    charged to the functions, counted by family, equal to the wrappers'
+    launch counts in that cycle, and the device time it charged to the
+    functions (the report's and the cycle's bookkeeping: invalid_count,
+    residual, rms) at least MEASURED_SHARE_MIN of the profiler's whole
+    device time there. The state after the measurement is the state
+    before."""
+    import torch
+    from mgcfd_tpu_torch import kernels
+    from mgcfd_tpu_torch.monitor import opstats
+    L = len(ins.dmesh.levels)
+    kernels.reset_launch_counts()
+    ins.run(cycles, warmup=False)
+    counts = kernels.launch_counts()
+    st = ins.stats
+    want = {(f, lev) for lev in range(L) for f in
+            ("compute_step", "flux", "time_step", "indirect_rw")}
+    want |= {(f, lev) for lev in range(L - 1) for f in ("restrict",
+                                                        "prolong")}
+    require(set(st.calls) == want and all(st.times[k] > 0 for k in want),
+            f"{what}: timed {sorted(st.calls)}")
+    for function, counter in INSTRUMENTED_COUNTERS[
+            ins.config.accumulate].items():
+        calls = sum(n for (f, _), n in st.calls.items() if f == function)
+        require(calls == counts[counter], f"{what}: {calls} {function} "
+                f"calls, {counts[counter]} {counter} launches")
+    log(f"{what}: {cycles} cycles, {sum(st.calls.values())} timed calls "
+        f"in {st.total_time:.3f} s (host), calls equal to the launch "
+        f"counts {counts}; us per call by function and level: " + ", ".join(
+            f"{f}{lev} {st.times[(f, lev)] / st.calls[(f, lev)] * 1e6:.1f}"
+            for f, lev in sorted(st.calls, key=lambda k: (k[1], k[0]))))
+    before = [t.clone() for t in ins.state["variables"]]
+    kernels.reset_launch_counts()
+    m = opstats.measure_instrumented(ins, cycles=1)
+    counted = by_family(kernels.launch_counts())
+    seen = {}
+    for rec in m.functions.values():
+        for fam, n in hand_split(rec)[0].items():
+            seen[fam] = seen.get(fam, 0) + n
+    share = 1 - m.other["time_us"] / max(m.total_us, 1e-9)
+    top = sorted(m.other["kernels"].items(), key=lambda kv: -kv[1][1])[:6]
+    log(f"{what}: measure_instrumented, 1 cycle on {m.device}: "
+        f"{m.total_us:.1f} us of device time, {share:.4f} of it charged to "
+        f"the functions (outside them {m.other['time_us']:.1f} us in "
+        f"{m.other['occurrences']} kernels, the most {top}); hand-kernel "
+        f"launches by family {seen}, the counts say {counted}")
+    require(seen == counted, f"{what}: measured launches by family {seen}, "
+            f"the counts say {counted}")
+    require(share >= MEASURED_SHARE_MIN, f"{what}: only {share:.4f} of the "
+            f"device time charged to the functions")
+    require(all(torch.equal(a, b) for a, b in
+                zip(before, ins.state["variables"])),
+            f"{what}: measure_instrumented changed the state")
+
+
+def log_split(m, what: str, card_label: str) -> None:
+    """A measurement's device time per (function, level): hand kernels and
+    the eager PyTorch ops apart."""
+    parts = []
+    for (f, lev), rec in sorted(m.functions.items(),
+                                key=lambda kv: (kv[0][1], kv[0][0])):
+        fams, hand, eager, n = hand_split(rec)
+        parts.append(f"{f}{lev} {rec['time_us']:.1f} (hand {hand:.1f} in "
+                     f"{sum(fams.values())}, eager {eager:.1f} in {n})")
+    log(f"{what}: device us per cycle by function and level: "
+        + "; ".join(parts) + f"; outside the functions "
+        f"{m.other['time_us']:.1f} in {m.other['occurrences']}; total "
+        f"{m.total_us:.1f} [{card_label}]")
+
+
+def monitor_phase(solver, tr, tf64, t32, box, m32, tet_input, scratch,
+                  card_label: str):
+    """The unfused window stage and the monitor (mgcfd_tpu_torch/monitor/)
+    on the tet flagship tr, the box flagship `box` and the 32^3 tet's
+    files. Returns ({dtype: unfused 'window' solver on tr}, {dtype: its
+    launch counts}) for the edge_csr.flux records."""
+    import torch
+    from mgcfd_tpu_torch.cli.main import main as cli_main
+    from mgcfd_tpu_torch.core.config import SolverConfig
+    from mgcfd_tpu_torch.kernels import edge_csr
+    from mgcfd_tpu_torch.monitor import InstrumentedSolver, csvout, opstats
+    t0 = time.perf_counter()
+    unfused, runs = {}, {}
+    for dt in ("float64", "float32", "bfloat16"):
+        u = solver(tr, dt, "window", fuse_window_stage=False)
+        W0 = u.dmesh.levels[0]
+        q = random_state(W0.num_nodes, 90, u.dtype, W0.volumes.device)
+        check_cases([("edge_csr.flux tet flagship L0",
+                      edge_csr.flux(W0.csr, q),
+                      edge_csr.edge_csr_plain("flux", W0.csr, q))], u.dtype)
+        runs[dt] = counted_run(u, 2, f"tet flagship {dt} unfused window",
+                               WANT_WINDOW_UNFUSED)
+        unfused[dt] = u
+    same_as_plain(unfused["float64"], tf64, tr,
+                  "tet flagship fp64 unfused window against the fused one")
+    for mesh, what, cycles in ((tr, "tet flagship", 2), (box, "box", 2)):
+        ins = InstrumentedSolver(mesh, SolverConfig(dtype="float32"))
+        log(f"instrumented {what} fp32: accumulate={ins.config.accumulate}")
+        check_instrumented(ins, f"instrumented {what} fp32", cycles)
+        healthy(ins, f"instrumented {what} fp32")
+    for s_, what in ((t32, "tet flagship RCM 'window' fp32"),
+                     (m32, "box 'pallas' fp32")):
+        before = [t.clone() for t in s_.state["variables"]]
+        m = opstats.measure_production(s_, cycles=1)
+        log_split(m, f"measure_production {what}, 1 cycle of run",
+                  card_label)
+        require(all(torch.equal(a, b) for a, b in
+                    zip(before, s_.state["variables"])),
+                f"{what}: measure_production changed the state")
+    out = scratch / "monitor"
+    conf = scratch / "events.conf"
+    conf.write_text("# the cost file's events\nCALLS\nMODEL_BYTES\n"
+                    "MODEL_OPERATIONS\n")
+    require(cli_main(["-i", tet_input, "--renumber", "--monitor",
+                      "instrumented", "-o", f"{out}/", "--measure-ops",
+                      "-p", str(conf), "-g", "2"]) == 0,
+            "the CLI's monitor failed on the tet's files")
+    ident = csvout.ID_COLUMNS
+    cols = [f"{k}{lev}" for lev in range(3) for k in csvout.KERNEL_COLUMNS]
+    for fname, extra, tail in (("Times.csv", [], ["Total"]),
+                               ("LoopNumIters.csv", [], []),
+                               (csvout.COSTS_FILE, ["Event"], [])):
+        lines = (out / fname).read_text().splitlines()
+        got = lines[0].split(",")[:-1]
+        require(got == ident + ["ThreadNum", "CpuId"] + extra + cols + tail,
+                f"CLI monitor: {fname} header {got}")
+        log(f"CLI monitor: {fname}: {len(lines) - 1} rows, header of "
+            f"{len(got)} columns as the reference's")
+    log(f"monitor phase: {time.perf_counter() - t0:.1f} s (watchdog "
+        f"{WATCHDOG_S} s)")
+    return unfused, runs
+
+
+def flux_records(u, run, card_label: str):
+    """The record of edge_csr.flux over level 0's whole owner CSR of an
+    unfused 'window' solver on the tet flagship (name suffixed .tet),
+    timed as kernel_records times them; launches from its counted run."""
+    from mgcfd_tpu_torch.kernels import edge_csr
+    from mgcfd_tpu_torch.monitor.costs import edge_csr_cost
+    W0 = u.dmesh.levels[0]
+    q = u.state["variables"][0]
+    rows = [("edge_csr.flux", "edge_csr", "unfused",
+             lambda: edge_csr.flux(W0.csr, q),
+             lambda: edge_csr.edge_csr_plain("flux", W0.csr, q), None,
+             *edge_csr_cost("flux", W0.csr, q.element_size()))]
+    return time_rows(rows, {"unfused": run}, u.dtype,
+                     launch_floor_ms(q.device), card_label, ".tet")
 
 
 def start_tet_flagship(here: Path, scratch: Path):
@@ -1458,6 +1637,11 @@ def smoke(tet_job, scratch: Path) -> int:
     for s_ in (tf64, tets32[".tet"], t16):
         check_rw(s_, "tet flagship")
 
+    # --- the unfused window stage and the monitor ---
+    unfused, runs_unfused = monitor_phase(
+        solver, tr, tf64, tets32[".tet"], mesh, m32, tet_input, scratch,
+        f"{name}, {smi}")
+
     # --- times at the level-0 shapes, for each dtype ---
     records = []
     for s_main, s_win, runs in ((m32, w32, runs32), (m64, w64, runs64),
@@ -1468,6 +1652,8 @@ def smoke(tet_job, scratch: Path) -> int:
     for s_, runs in ((t16, runs_tet16), (tf64, runs_tet64)):
         records += tet_records({".tet": s_}, runs, f"{name}, {smi}",
                                only="edge_csr.rw")
+    for dt, u in unfused.items():
+        records += flux_records(u, runs_unfused[dt], f"{name}, {smi}")
     timings = [batched_timing(s_, what, f"{name}, {smi}") for s_, what in (
         (m32, "box 'pallas' fp32"), (m16, "box 'pallas' bf16"),
         (w32, "box 'window' fp32"),

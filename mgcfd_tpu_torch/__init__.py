@@ -11,6 +11,8 @@ Layering follows the JAX package:
   ops/       plain torch ops (flux, stepping, multigrid, validation)
   kernels/   the nvcc build and the kernel wrappers (sources in csrc/)
   solver/    RK smoother + multigrid V-cycle; K cycles as a CUDA graph
+  monitor/   the instrumented solver, the reference's CSV reports, the
+             cost model, device time per function from torch.profiler
   validate/  golden-comparison tolerances
   cli/       command-line entry point (subset of the reference flags)
   bench/     the flagship problems, the cycle profile, kernel A/B timing

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 ACCUMULATE_MODES = ("auto", "segment", "window", "pallas", "shift")
+MONITOR_MODES = ("fused", "instrumented")
 # bfloat16 is a storage format: the kernels load bf16, compute in f32 and
 # round once on store; the plain paths run op by op in bf16, as XLA does
 DTYPES = ("float32", "float64", "bfloat16")
@@ -23,7 +24,6 @@ _ACCUMULATE_ROADMAP = {
 
 # field -> ROADMAP item; the field must keep its default until then
 _NOT_PORTED = {
-    "output_file_prefix": "queue 1, item 6 (validate/golden.py dumps)",
     "validate_result": "queue 1, item 6 (validate/)",
     "output_variables": "queue 1, item 6 (validate/golden.py dumps)",
     "output_fluxes": "queue 1, item 6 (validate/golden.py dumps)",
@@ -35,17 +35,11 @@ _NOT_PORTED = {
     "checkpoint_dir": "queue 1, item 6 (utils/checkpoint.py)",
     "checkpoint_every": "queue 1, item 6 (utils/checkpoint.py)",
     "resume": "queue 1, item 6 (utils/checkpoint.py)",
-    "event_config_file": "queue 1, item 7 (monitor/events.py)",
     "num_partitions": "queue 1, item 9 (parallel/)",
     "partition_2d": "queue 1, item 9 (parallel/)",
     "shard_levels": "queue 1, item 9 (parallel/)",
-    "monitor_mode": "queue 1, item 7 (monitor/)",
     "flux_fission": "queue 1, item 4 (the fission formulation of "
                     "accumulate_flux)",
-    "flux_reuse_flux": "queue 1, item 7 (monitor/csvout.py flux options)",
-    "flux_reuse_div": "queue 1, item 7 (monitor/csvout.py flux options)",
-    "flux_reuse_factor": "queue 1, item 7 (monitor/csvout.py flux "
-                         "options)",
     "mg_gather": "queue 1, item 4 (the scatter formulation of the MG "
                  "transfers)",
     "plan_cache_dir": "queue 1, item 4 (prep/window.py cached_plan)",
@@ -65,7 +59,7 @@ class SolverConfig:
     # --- runtime flags (reference CLI: config.cpp:32-47) ---
     input_file: str = ""
     input_file_directory: str = ""
-    output_file_prefix: str = ""
+    output_file_prefix: str = ""      # -o: the monitor's reports
     mesh_duplicate_count: int = 1
     num_cycles: int = 25              # -g (config.cpp:63)
     validate_result: bool = False
@@ -79,6 +73,8 @@ class SolverConfig:
     flux_fission: bool = False
     flux_cripple: bool = False
     flux_precompute_edge_weights: bool = False
+    # the FLUX_REUSE_* macros only label the CSV's "Flux options" field,
+    # as in mgcfd_tpu (the kernels already share their reciprocals)
     flux_reuse_flux: bool = False
     flux_reuse_div: bool = False
     flux_reuse_factor: bool = False
@@ -87,7 +83,7 @@ class SolverConfig:
     checkpoint_dir: str = ""
     checkpoint_every: int = 0
     resume: bool = False
-    event_config_file: str = ""
+    event_config_file: str = ""       # -p: the cost file's events
 
     dtype: str = "float32"            # one of DTYPES
     # 'auto' resolves at solver build: on CUDA 'pallas' when every
@@ -106,7 +102,8 @@ class SolverConfig:
     # count as separate ops (False)
     fuse_stage: bool = True
     # accumulate='window' runs each RK stage as one fused kernel launch
-    # (None or True); the unfused pipeline (False) is not ported
+    # (None or True), or the edge_csr flux kernel over the owner CSR, then
+    # boundary/wall, time step and invalid count as separate ops (False)
     fuse_window_stage: bool | None = None
     # accumulate='shift': variable-major (5, N) state with the rolled span
     # evaluation (True) or node-major per-span slices (False); the kernel
@@ -120,7 +117,7 @@ class SolverConfig:
     num_partitions: int = 1
     partition_2d: str = ""
     shard_levels: int = 1
-    monitor_mode: str = "fused"
+    monitor_mode: str = "fused"       # one of MONITOR_MODES (the CLI's)
 
     def validate(self) -> None:
         """Reject a configuration the port would silently get wrong."""
@@ -145,8 +142,21 @@ class SolverConfig:
                 raise NotImplementedError(
                     f"SolverConfig.{f.name} has no counterpart in the "
                     f"port: {_NO_COUNTERPART[f.name]}")
-        if self.fuse_window_stage is False:
-            raise NotImplementedError(
-                "SolverConfig.fuse_window_stage=False (the unfused window "
-                "stage) is not ported yet: ROADMAP.md queue 1, items 7 "
-                "and 9 (the instrumented and sharded solvers run it)")
+        if self.monitor_mode not in MONITOR_MODES:
+            raise ValueError(f"unknown monitor mode {self.monitor_mode!r}")
+
+    def flux_options_string(self) -> str:
+        """CSV 'Flux options' field (io_enhanced.cpp:895-908 semantics)."""
+        s = ""
+        if self.flux_precompute_edge_weights:
+            s += "PrecomputeLength;"
+        if self.flux_reuse_div:
+            s += "Reciprocal;"
+        if self.flux_reuse_factor:
+            s += "ReuseFactor;"
+        if self.flux_reuse_flux:
+            s += "ReuseFluxes;"
+        return s
+
+    def flux_variant_string(self) -> str:
+        return "FluxCripple" if self.flux_cripple else "Normal"

@@ -3,7 +3,8 @@
 WRAPPERS lists every kernel wrapper; each counts its own kernel launches
 so that a run can show which kernels it went through. The window path
 (accumulate='window') runs fused_stage, edge_csr.rw, edge_csr.restrict and
-edge_csr.prolong; the box path (accumulate='pallas') runs
+edge_csr.prolong, or with fuse_window_stage=False edge_csr.flux over the
+whole owner CSR in place of fused_stage; the box path (accumulate='pallas') runs
 shift.fused_stage (or shift.flux when the stage is unfused), shift.rw and
 the same restrict and prolong, plus edge_csr.flux and edge_csr.rw over
 the spill edges where its plan leaves any.

@@ -17,8 +17,9 @@ Paths, chosen by SolverConfig.accumulate:
   'window'   variable-major (5, N) state through the CUDA kernels over
              owner-sorted CSR plans (fused RK stage, rw twin, restriction
              and composed prolongation); on the CPU the same wrappers run
-             their plain versions. The edge_csr flux mode is not on this
-             path: the fused stage carries its row loop;
+             their plain versions. With fuse_window_stage=False each
+             stage is the edge_csr flux kernel over the owner CSR, plus
+             boundary/wall, then the time step and the invalid count;
   'pallas'   variable-major state through the span kernels of box-class
              meshes (prep/shift.py): one fused RK stage per launch (or,
              with fuse_stage=False, the span flux kernel and separate
@@ -28,9 +29,21 @@ Paths, chosen by SolverConfig.accumulate:
   'shift'    the span decomposition in plain PyTorch: node-major per-span
              slices, or with transposed=True the variable-major rolled
              evaluation.
+
+The functions of one solver step (compute_step, flux, time_step,
+indirect_rw, restrict, prolong) each run inside kscope(function, level).
+The instrumented solver (monitor/instrument.py) runs this same cycle with
+the fused stages off and times each function there (timed_calls). While a
+measurement has switched them on (measured_ranges), each runs inside a
+torch.profiler range k_<function>_l<level>, which monitor/opstats.py
+charges device time to, and so does the cycle's bookkeeping
+(invalid_count, residual, and rms on level 0, run's host reads of them
+included), which the reference times under no kernel; switched off, as
+always outside a measurement, no range is entered.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -209,6 +222,54 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
 
 
 # ---------------------------------------------------------------------------
+# the measurement's ranges (mgcfd_tpu's _kscope)
+# ---------------------------------------------------------------------------
+
+_ranges_on = False
+_NO_RANGE = contextlib.nullcontext()
+# while timed_calls is on: (function, level, range) -> the context that
+# times the call (monitor/instrument.py's InstrumentedSolver)
+_timer = None
+
+
+@contextlib.contextmanager
+def measured_ranges():
+    """Switch the k_<function>_l<level> ranges on inside the block
+    (monitor/opstats.py), for MGCFDSolver's cycle and the instrumented
+    solver's calls. A module-level switch: the ranges cost host time, so
+    run and the CUDA graph's capture enter them only while a measurement
+    asks."""
+    global _ranges_on
+    _ranges_on = True
+    try:
+        yield
+    finally:
+        _ranges_on = False
+
+
+@contextlib.contextmanager
+def timed_calls(timer):
+    """Inside the block every kscope is also timed by `timer` (the
+    instrumented solver's), which is given the function, the level and
+    the range to enter."""
+    global _timer
+    _timer = timer
+    try:
+        yield
+    finally:
+        _timer = None
+
+
+def kscope(function: str, level: int):
+    """The range k_<function>_l<level> while measured_ranges is on, else
+    a context that does nothing; inside timed_calls, wrapped in its
+    timer."""
+    rng = (torch.profiler.record_function(f"k_{function}_l{level}")
+           if _ranges_on else _NO_RANGE)
+    return rng if _timer is None else _timer(function, level, rng)
+
+
+# ---------------------------------------------------------------------------
 # one level, node-major paths ('segment', 'shift')
 # ---------------------------------------------------------------------------
 
@@ -243,23 +304,34 @@ def _indirect_rw(lvl: DeviceLevel, variables):
                            val_internal_b=val_b)
 
 
-def _visit(lvl: DeviceLevel, variables, ff_flux, config: SolverConfig,
-           legacy_step: bool):
-    """One smoothing pass (euler3d_cpu_double.cpp:383-512): returns
-    (variables, residuals, invalid_count)."""
-    old = variables
+def step_factor(lvl: DeviceLevel, variables, legacy_step: bool):
+    """Step factor of an (N, 5) state (cfd_loops.cpp:13-157)."""
     if legacy_step:
-        sf = compute_step_factor_legacy(variables, lvl.volumes)
-    else:
-        sf = compute_step_factor(variables, lvl.volumes, lvl.cbrt_volumes)
-    invalid = torch.zeros((), dtype=torch.int64, device=variables.device)
+        return compute_step_factor_legacy(variables, lvl.volumes)
+    return compute_step_factor(variables, lvl.volumes, lvl.cbrt_volumes)
+
+
+def _visit(lvl: DeviceLevel, variables, ff_flux, config: SolverConfig,
+           legacy_step: bool, tag: int):
+    """One smoothing pass (euler3d_cpu_double.cpp:383-512): returns
+    (variables, residuals, invalid_count). tag: the level, for kscope."""
+    old = variables
+    with kscope("compute_step", tag):
+        sf = step_factor(lvl, variables, legacy_step)
+    with kscope("invalid_count", tag):
+        invalid = torch.zeros((), dtype=torch.int64, device=variables.device)
     for j in range(RK):
-        fluxes = _compute_fluxes(lvl, variables, ff_flux)
-        variables = time_step(j, sf, fluxes, old)
-        invalid = invalid + invalid_variables_count(variables)
+        with kscope("flux", tag):
+            fluxes = _compute_fluxes(lvl, variables, ff_flux)
+        with kscope("time_step", tag):
+            variables = time_step(j, sf, fluxes, old)
+        with kscope("invalid_count", tag):
+            invalid = invalid + invalid_variables_count(variables)
         if config.include_indirect_rw:
-            _indirect_rw(lvl, variables)
-    return variables, residual(old, variables), invalid
+            with kscope("indirect_rw", tag):
+                _indirect_rw(lvl, variables)
+    with kscope("residual", tag):
+        return variables, residual(old, variables), invalid
 
 
 # ---------------------------------------------------------------------------
@@ -277,22 +349,61 @@ def t_step_factor(lvl: DeviceLevel, q, legacy_step: bool):
 
 
 def _visit_window(lvl: DeviceLevel, q, config: SolverConfig,
-                  legacy_step: bool):
+                  legacy_step: bool, tag: int):
     """The kernel-path smoothing pass on a (5, N) state: ONE fused_stage
     launch per RK stage covers flux, boundary/wall, time step and invalid
-    count; the step factor stays outside (its global min is a cross-block
-    reduction). The rw twin's kernel runs after each stage and its result
-    is discarded."""
+    count (its device time lands on the flux range, as in mgcfd_tpu); the
+    step factor stays outside (its global min is a cross-block
+    reduction). With fuse_window_stage=False each stage is
+    t_compute_fluxes, the time step and the invalid count instead
+    (mgcfd_tpu's _visit_transposed). The rw twin's kernel runs after each
+    stage and its result is discarded."""
+    fused = config.fuse_window_stage is not False
     old = q
-    sf = t_step_factor(lvl, q, legacy_step)
-    invalid = torch.zeros((), dtype=torch.int64, device=q.device)
+    with kscope("compute_step", tag):
+        sf = t_step_factor(lvl, q, legacy_step)
+    with kscope("invalid_count", tag):
+        invalid = torch.zeros((), dtype=torch.int64, device=q.device)
     for j in range(RK):
-        q, inv = fused_stage(lvl.csr, lvl.nc, q, old,
-                             sf / float(RK + 1 - j))
-        invalid = invalid + inv
+        if fused:
+            with kscope("flux", tag):
+                q, inv = fused_stage(lvl.csr, lvl.nc, q, old,
+                                     sf / float(RK + 1 - j))
+        else:
+            with kscope("flux", tag):
+                flux = t_compute_fluxes(lvl, q, config)
+            with kscope("time_step", tag):
+                q = tops.t_time_step(j, sf, flux, old)
+        with kscope("invalid_count", tag):
+            invalid = invalid + (inv if fused else invalid_count(q))
         if config.include_indirect_rw:
-            edge_csr.rw(lvl.csr, q)
-    return q, q - old, invalid
+            with kscope("indirect_rw", tag):
+                t_indirect_rw(lvl, q, config)
+    with kscope("residual", tag):
+        return q, q - old, invalid
+
+
+def t_compute_fluxes(lvl: DeviceLevel, q, config: SolverConfig):
+    """Internal + boundary + wall flux of a (5, N) state (mgcfd_tpu's
+    t_compute_fluxes): the edge_csr flux kernel over the level's owner CSR
+    ('window'), or the span flux and its spill edges ('pallas', transposed
+    'shift'), plus the dense boundary/wall flux. Shared by the solver's
+    unfused stages and the instrumented solver."""
+    if config.accumulate == "window":
+        flux = edge_csr.flux(lvl.csr, q)
+    else:
+        flux = _span_flux(lvl, q, config.accumulate == "pallas")
+    return flux + tops.t_dense_boundary_wall_flux(
+        q, lvl.nc[0:3], lvl.nc[3:6], lvl.nc[6:11])
+
+
+def t_indirect_rw(lvl: DeviceLevel, q, config: SolverConfig) -> None:
+    """The indirect_rw twin of t_compute_fluxes (mgcfd_tpu's
+    t_indirect_rw); its result is discarded."""
+    if config.accumulate == "window":
+        edge_csr.rw(lvl.csr, q)
+    else:
+        _span_rw(lvl, q, config.accumulate == "pallas")
 
 
 def _span_flux(lvl: DeviceLevel, q, kernels: bool):
@@ -334,33 +445,38 @@ def _span_rw(lvl: DeviceLevel, q, kernels: bool):
 
 
 def _visit_span(lvl: DeviceLevel, q, config: SolverConfig,
-                legacy_step: bool):
+                legacy_step: bool, tag: int):
     """The smoothing pass of the span paths on a (5, N) state
     (mgcfd_tpu's _visit_transposed). 'pallas' with fuse_stage: ONE
     shift.fused_stage launch per RK stage, the spill edges' flux (from
     the edge_csr flux kernel) entering as its operand. Otherwise each
     stage is the span flux, plus the dense boundary/wall flux, then the
     time step and the invalid count. The rw twin runs after each stage."""
-    kernels = config.accumulate == "pallas"
+    fused = config.accumulate == "pallas" and config.fuse_stage
     old = q
-    sf = t_step_factor(lvl, q, legacy_step)
-    invalid = torch.zeros((), dtype=torch.int64, device=q.device)
+    with kscope("compute_step", tag):
+        sf = t_step_factor(lvl, q, legacy_step)
+    with kscope("invalid_count", tag):
+        invalid = torch.zeros((), dtype=torch.int64, device=q.device)
     for j in range(RK):
-        if kernels and config.fuse_stage:
-            spill = (None if lvl.spill_csr is None
-                     else edge_csr.flux(lvl.spill_csr, q))
-            q, inv = shift.fused_stage(lvl.shift, lvl.nc, q, old,
-                                       sf / float(RK + 1 - j), spill)
+        if fused:
+            with kscope("flux", tag):
+                spill = (None if lvl.spill_csr is None
+                         else edge_csr.flux(lvl.spill_csr, q))
+                q, inv = shift.fused_stage(lvl.shift, lvl.nc, q, old,
+                                           sf / float(RK + 1 - j), spill)
         else:
-            flux = _span_flux(lvl, q, kernels) \
-                + tops.t_dense_boundary_wall_flux(
-                    q, lvl.nc[0:3], lvl.nc[3:6], lvl.nc[6:11])
-            q = tops.t_time_step(j, sf, flux, old)
-            inv = invalid_count(q)
-        invalid = invalid + inv
+            with kscope("flux", tag):
+                flux = t_compute_fluxes(lvl, q, config)
+            with kscope("time_step", tag):
+                q = tops.t_time_step(j, sf, flux, old)
+        with kscope("invalid_count", tag):
+            invalid = invalid + (inv if fused else invalid_count(q))
         if config.include_indirect_rw:
-            _span_rw(lvl, q, kernels)
-    return q, q - old, invalid
+            with kscope("indirect_rw", tag):
+                t_indirect_rw(lvl, q, config)
+    with kscope("residual", tag):
+        return q, q - old, invalid
 
 
 # ---------------------------------------------------------------------------
@@ -471,6 +587,7 @@ class CycleGraph:
 # the solver
 # ---------------------------------------------------------------------------
 
+
 class MGCFDSolver:
     """Owns the device mesh and state, runs V-cycles and performs the
     fail-fast invalid-state check between cycles (validation.cpp:107-138).
@@ -516,8 +633,9 @@ class MGCFDSolver:
         legacy = self.dmesh.variant.uses_legacy_step_factor
         variables = self.state["variables"]
         residuals = self.state["residuals"]
-        invalid_total = torch.zeros((), dtype=torch.int64,
-                                    device=self.device)
+        with kscope("invalid_count", 0):
+            invalid_total = torch.zeros((), dtype=torch.int64,
+                                        device=self.device)
 
         mode = self.config.accumulate
         tstate = self._tstate
@@ -526,34 +644,39 @@ class MGCFDSolver:
             nonlocal invalid_total
             if mode == "window":
                 v, res, inv = _visit_window(levels[lev], variables[lev],
-                                            self.config, legacy)
+                                            self.config, legacy, lev)
             elif tstate:
                 v, res, inv = _visit_span(levels[lev], variables[lev],
-                                          self.config, legacy)
+                                          self.config, legacy, lev)
             else:
                 v, res, inv = _visit(levels[lev], variables[lev],
                                      self.dmesh.ff_flux, self.config,
-                                     legacy)
+                                     legacy, lev)
             variables[lev] = v
             residuals[lev] = res
-            invalid_total = invalid_total + inv
+            with kscope("invalid_count", lev):
+                invalid_total = invalid_total + inv
             return res
 
         rms = None
         for lev in range(L - 1):
             res = visit(lev)
             if lev == 0:
-                rms = calc_rms(res, levels[0].num_nodes)
-            variables[lev + 1] = apply_restrict(
-                levels[lev], levels[lev + 1], variables[lev],
-                variables[lev + 1], tstate)
+                with kscope("rms", 0):
+                    rms = calc_rms(res, levels[0].num_nodes)
+            with kscope("restrict", lev):
+                variables[lev + 1] = apply_restrict(
+                    levels[lev], levels[lev + 1], variables[lev],
+                    variables[lev + 1], tstate)
         res = visit(L - 1)
         if L == 1:
-            rms = calc_rms(res, levels[0].num_nodes)
+            with kscope("rms", 0):
+                rms = calc_rms(res, levels[0].num_nodes)
         for lev in range(L - 2, -1, -1):
-            variables[lev] = apply_prolong(
-                levels[lev], levels[lev + 1], residuals[lev + 1],
-                residuals[lev], variables[lev], tstate)
+            with kscope("prolong", lev):
+                variables[lev] = apply_prolong(
+                    levels[lev], levels[lev + 1], residuals[lev + 1],
+                    residuals[lev], variables[lev], tstate)
             if lev > 0:
                 visit(lev)
         return rms, invalid_total
@@ -567,13 +690,15 @@ class MGCFDSolver:
         for i in range(cycles):
             rms, invalid = self.cycle()
             if (i + 1) % check_every == 0 or i == cycles - 1:
-                inv = int(invalid)
+                with kscope("invalid_count", 0):
+                    inv = int(invalid)
                 if inv > 0:
                     raise FloatingPointError(
                         f"invalid state detected during cycle {i + 1}: "
                         f"{inv} bad entries (NaN/Inf/negative density or "
                         f"energy)")
-                self.rms_history.append(float(rms))
+                with kscope("rms", 0):
+                    self.rms_history.append(float(rms))
                 if verbose:
                     print(f"MG cycle {i + 1} / {cycles} "
                           f"(RMS = {self.rms_history[-1]:.3e})", flush=True)
@@ -632,8 +757,5 @@ class MGCFDSolver:
         """(N,) step factors of the current state, as float64 numpy."""
         lvl = self.dmesh.levels[level]
         v = self._node_major(self.state["variables"][level])
-        if self.dmesh.variant.uses_legacy_step_factor:
-            sf = compute_step_factor_legacy(v, lvl.volumes)
-        else:
-            sf = compute_step_factor(v, lvl.volumes, lvl.cbrt_volumes)
+        sf = step_factor(lvl, v, self.dmesh.variant.uses_legacy_step_factor)
         return sf.detach().to("cpu", torch.float64).numpy()

@@ -3,7 +3,7 @@
 Both start from identical arrays (convert.mesh_from_arrays). The JAX leg
 is SolverConfig(dtype="float64"), which `auto` sends to its segment path
 on the CPU. The port runs its plain edge-stream path ('segment'), its
-kernel paths ('window', and 'pallas' fused and unfused), whose wrappers
+kernel paths ('window' and 'pallas', fused and unfused), whose wrappers
 take the plain versions for CPU tensors, and its plain span paths
 ('shift', node-major and transposed). On the tet almost every edge of
 the span paths is a spill edge. Per-cycle RMS and final level-0
@@ -30,6 +30,8 @@ torch.set_num_threads(1)
 CYCLES = 3
 PATHS = {"segment": {"accumulate": "segment"},
          "window": {"accumulate": "window"},
+         "window-unfused": {"accumulate": "window",
+                            "fuse_window_stage": False},
          "pallas": {"accumulate": "pallas"},
          "pallas-unfused": {"accumulate": "pallas", "fuse_stage": False},
          "shift": {"accumulate": "shift"},
@@ -128,20 +130,18 @@ def test_accumulate_resolution_and_unported_options():
         SolverConfig(flux_fission=True, accumulate="window").validate()
 
 
-# every field the port lacks, at a value other than its default
+# every field the port lacks, at a value other than its default (the
+# monitor's fields are ported: tests/test_torch_monitor.py)
 UNPORTED = {
-    "output_file_prefix": "p",
     "validate_result": True, "output_variables": True,
     "output_fluxes": True, "output_step_factors": True,
     "output_volumes": True, "output_edge_fluxes": True,
     "flux_fission": True, "flux_cripple": True,
-    "flux_precompute_edge_weights": True, "flux_reuse_flux": True,
-    "flux_reuse_div": True, "flux_reuse_factor": True,
+    "flux_precompute_edge_weights": True,
     "checkpoint_dir": "c", "checkpoint_every": 1, "resume": True,
-    "event_config_file": "e", "fuse_window_stage": False,
     "window_tile_order": False, "mg_gather": False, "plan_cache_dir": "p",
     "compile_cache_dir": "c", "num_partitions": 2, "partition_2d": "2x2",
-    "shard_levels": 2, "monitor_mode": "instrumented",
+    "shard_levels": 2,
 }
 
 
