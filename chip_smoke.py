@@ -84,7 +84,29 @@ What it does, in order, printing each step with the elapsed seconds:
      time per function and level, hand kernels and eager ops apart); the
      CLI's --monitor instrumented -o DIR/ --measure-ops -p FILE on the
      32^3 tet's files, its three reports' headers those of the reference;
- 14. times each V-cycle (fp32 beside bf16) and each kernel at fp32, fp64
+ 14. the reference's kernel variants, checkpoints, dumps, -v and the
+     capacity legs (every tet flagship solver's plans through one plan
+     cache), printing the phase's seconds beside the watchdog:
+     mg_gather=False on the tet flagship ('window'): fp64 within
+     identify_differences of the wsum transfers on every level, 18
+     fused_stage and 18 rw launches a cycle and no wsum, and at fp32
+     run_batched bit-equal to run (torch's deterministic index_add_ in
+     both); flux_cripple on the box ('pallas') and the tet flagship
+     ('window') at fp32: every level bit-equal to the run without it,
+     the launches equal, the crippled twin's device time a cycle from
+     measure_production (outside every function); the edge-stream
+     variants on the box at fp64 ('scatter', 'ell', 'segment' with
+     flux_fission and with flux_precompute_edge_weights) within
+     identify_differences of 'segment' on every level, each timed in ms
+     a cycle; on the tet flagship at fp32, run(2) with a checkpoint a
+     cycle, then a new solver resumed from it (its plans all loaded from
+     the cache, equal to the built ones, with both builds' host seconds)
+     and run(1), bit-equal to run(3) with an equal RMS history; the CLI
+     on the 32^3 tet's files with -c FILE and --output-variables at fp64,
+     then -v against that dump (PASS, exit 0) and against a perturbed one
+     (exit 1); and capacity.acceptance on the box flagship (fp32 auto,
+     fp64 'segment') accepted;
+ 15. times each V-cycle (fp32 beside bf16) and each kernel at fp32, fp64
      and bf16 (each held to its plain version at the tolerance of 4
      first) beside its bound, its plain version, a library call where
      one computes the same function, and the launch floor (a one-element
@@ -98,7 +120,7 @@ What it does, in order, printing each step with the elapsed seconds:
      profiler's count of each kernel family's launches must equal the
      launch counts, in one replay (the capture's, added by run_batched)
      and in the cycles of run (the wrappers');
- 15. prints the card's name and power limit, one JSON line of kernel
+ 16. prints the card's name and power limit, one JSON line of kernel
      records, and last the JSON line {"ok": true, "device": {...}}.
 Any failed check raises, and the exit code is then non-zero. Without a
 CUDA device, or without the package beside this file, it exits non-zero
@@ -187,6 +209,8 @@ WANT_MAIN = {"shift.fused_stage": 18, "shift.rw": 18, **MG}
 WANT_WINDOW = {"fused_stage": 18, "edge_csr.rw": 18, **MG}
 WANT_UNFUSED = {"shift.flux": 18, "shift.rw": 18, **MG}
 WANT_WINDOW_UNFUSED = {"edge_csr.flux": 18, "edge_csr.rw": 18, **MG}
+# mg_gather=False: the plain scatter transfers, no wsum launch
+WANT_NO_GATHER = {"fused_stage": 18, "edge_csr.rw": 18}
 # the instrumented solver's functions and the launch counter of the kernel
 # each call launches once, by path
 INSTRUMENTED_COUNTERS = {
@@ -1301,6 +1325,231 @@ def monitor_phase(solver, tr, tf64, t32, box, m32, tet_input, scratch,
     return unfused, runs
 
 
+def snapshot(solver):
+    """A solver's state (cloned), RMS history and cycle count."""
+    return ({k: [t.clone() for t in v] for k, v in solver.state.items()},
+            list(solver.rms_history), solver.completed_cycles)
+
+
+def restore(solver, snap) -> None:
+    st, rms, done = snap
+    solver.state = {k: [t.clone() for t in v] for k, v in st.items()}
+    solver.rms_history, solver.completed_cycles = list(rms), done
+
+
+def same_state(a, b, what: str) -> None:
+    """Two solvers' states bit-equal on every level, the RMS histories
+    equal."""
+    import torch
+    for key in ("variables", "residuals"):
+        for lev, (x, y) in enumerate(zip(a.state[key], b.state[key])):
+            require(torch.equal(x, y), f"{what}: {key} of level {lev} "
+                    "differ")
+    require(a.rms_history == b.rms_history, f"{what}: RMS {a.rms_history} "
+            f"!= {b.rms_history}")
+
+
+def device_plans(s) -> dict:
+    """Every plan tensor a solver uploaded, by (level, plan, field)."""
+    out = {}
+    for i, lv in enumerate(s.dmesh.levels):
+        for name in ("csr", "spill_csr", "restrict_csr", "prolong_csr"):
+            plan = getattr(lv, name)
+            if plan is not None:
+                for f in ("row_ptr", "col", "owner", "w"):
+                    out[(i, name, f)] = getattr(plan, f)
+        if lv.restrict_mapped is not None:
+            out[(i, "restrict_mapped")] = lv.restrict_mapped
+    return out
+
+
+def options_phase(solver, box, m32, p64, tr, tf64, t32, tet_input, scratch,
+                  card_label: str) -> float:
+    """The reference's kernel variants, checkpoints, dumps, -v and the
+    capacity legs (module docstring, phase 14) on the box flagship `box`
+    (m32: its 'pallas' fp32 solver; p64: its fp64 'segment' solver after
+    2 cycles), the tet flagship tr (tf64: fp64 'window' after 2 cycles;
+    t32: fp32 'window') and the 32^3 tet's files. Every tet flagship
+    solver here builds its plans through one plan cache. Returns the
+    phase's seconds."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from mgcfd_tpu_torch.cli.main import main as cli_main
+    from mgcfd_tpu_torch.monitor import opstats
+    from mgcfd_tpu_torch.prep import plancache
+    from mgcfd_tpu_torch.validate import capacity
+    t0 = time.perf_counter()
+    plans = str(scratch / "plans")
+
+    # a. mg_gather=False: the plain scatter transfers in place of wsum
+    g64 = solver(tr, "float64", "window", mg_gather=False,
+                 plan_cache_dir=plans)
+    counted_run(g64, 2, "tet flagship fp64 'window' mg_gather=False",
+                WANT_NO_GATHER)
+    same_as_plain(g64, tf64, tr, "tet flagship fp64 mg_gather=False "
+                  "against the wsum transfers")
+    # the plain transfers' index_add_ sums with float atomics unless torch
+    # is asked for its deterministic index_add, which both runs take
+    a, b = (solver(tr, "float32", "window", mg_gather=False,
+                   plan_cache_dir=plans) for _ in range(2))
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        counts_a, _ = counted_run(a, BATCH_K, "tet flagship fp32 "
+                                  "mg_gather=False run", WANT_NO_GATHER)
+        counts_b, _ = counted_batched(b, BATCH_K, BATCH_K, "tet flagship "
+                                      "fp32 mg_gather=False")
+    finally:
+        torch.use_deterministic_algorithms(was)
+    require(counts_a == counts_b, f"mg_gather=False: run_batched launched "
+            f"{counts_b}, run {counts_a}")
+    same_state(a, b, "tet flagship fp32 mg_gather=False run_batched "
+               "against run")
+    log(f"tet flagship fp32 mg_gather=False: run_batched({BATCH_K}, "
+        f"{BATCH_K}) == run({BATCH_K}) bit for bit (torch's deterministic "
+        f"index_add_ on both)")
+
+    # b. flux_cripple: the crippled twin runs and changes nothing
+    for base, what, kw in ((m32, "box 'pallas' fp32", {}),
+                           (t32, "tet flagship 'window' fp32",
+                            {"plan_cache_dir": plans})):
+        c = solver(base.mesh, "float32", base.config.accumulate,
+                   flux_cripple=True, **kw)
+        snap = snapshot(base)
+        restore(c, snap)
+        counts, _ = counted_run(base, 2, f"{what} without the twin")
+        counts_c, _ = counted_run(c, 2, f"{what} flux_cripple")
+        require(counts == counts_c, f"{what}: flux_cripple launched "
+                f"{counts_c}, without it {counts}")
+        same_state(base, c, f"{what}: flux_cripple")
+        restore(base, snap)
+        m = opstats.measure_production(c, cycles=1)
+        require(m.other["occurrences"] > 0, f"{what}: the twin ran no "
+                "kernel outside the functions")
+        log(f"{what} flux_cripple: every level bit-equal to the run "
+            f"without it, launches equal {by_family(counts)}; the crippled "
+            f"twin {m.other['time_us']:.1f} us of device time a cycle in "
+            f"{m.other['occurrences']} kernels, outside every function "
+            f"(measure_production) [{card_label}]")
+
+    # c. the edge-stream variants against 'segment' (p64) after the same 2
+    # cycles, then timed, with 'segment' timed before and after them
+    variants = []
+    for kw in ({"accumulate": "scatter"}, {"accumulate": "ell"},
+               {"accumulate": "segment", "flux_fission": True},
+               {"accumulate": "segment",
+                "flux_precompute_edge_weights": True}):
+        v = solver(box, "float64", **kw)
+        v.run(2)
+        same_as_plain(v, p64, box, f"box fp64 {kw} against 'segment'")
+        variants.append((v, f"box fp64 {kw}"))
+    seg = (p64, "box fp64 {'accumulate': 'segment'}")
+    for v, what in [seg, *variants, seg]:
+        variant_ms(v, what, card_label)
+
+    # d. checkpoints and resume, and the plan cache's second build
+    ck = str(scratch / "checkpoints")
+    t1 = time.perf_counter()
+    plancache.reset_stats()
+    first = solver(tr, "float32", "window", checkpoint_dir=ck,
+                   checkpoint_every=1, plan_cache_dir=plans)
+    first_s, first_stats = time.perf_counter() - t1, \
+        {k: dict(v) for k, v in plancache.STATS.items()}
+    first.run(2)
+    t1 = time.perf_counter()
+    plancache.reset_stats()
+    resumed = solver(tr, "float32", "window", checkpoint_dir=ck,
+                     resume=True, plan_cache_dir=plans)
+    second_s = time.perf_counter() - t1
+    want_plans = {"torch-flux": 4, "torch-restrict": 3, "torch-prolong": 3}
+    require(plancache.STATS["loaded"] == want_plans
+            and not plancache.STATS["built"],
+            f"the second build did not load every plan from the cache: "
+            f"{plancache.STATS}")
+    p1, p2 = device_plans(first), device_plans(resumed)
+    require(p1.keys() == p2.keys() and all(torch.equal(p1[k], p2[k])
+                                           for k in p1),
+            "plans loaded from the cache differ from the built ones")
+    log(f"tet flagship 'window' fp32 solver build through the plan cache: "
+        f"{first_s:.2f} s ({first_stats}), then {second_s:.2f} s loading "
+        f"all {len(p2)} plan arrays, equal (host)")
+    require(resumed.completed_cycles == 2
+            and resumed.rms_history == first.rms_history,
+            f"resumed at cycle {resumed.completed_cycles}, RMS "
+            f"{resumed.rms_history} against {first.rms_history}")
+    first.run(1)
+    resumed.run(1)
+    same_state(first, resumed, "tet flagship fp32 resumed at cycle 2")
+    log(f"tet flagship fp32 'window': run(2) with a checkpoint a cycle, "
+        f"then a new solver resumed from ckpt-000002 and run(1) == run(3) "
+        f"bit for bit on every level, RMS history equal "
+        f"{resumed.rms_history}")
+
+    # e. the CLI's -c, --output-variables and -v on the 32^3 tet's files,
+    # and the capacity criterion on the box flagship
+    files = Path(tet_input).parent
+    conf = files / "smoke.conf"
+    conf.write_text("# chip_smoke.py\ninput_file = input.dat\n"
+                    "input_file_directory = ./\ncycles = 2\n"
+                    "dtype = float64\n")
+    out = scratch / "cli"
+    cli = ["-c", str(conf), "--renumber", "--plan-cache",
+           str(scratch / "plans32")]
+    require(cli_main(cli + ["--output-variables", "-o", f"{out}/"]) == 0,
+            "the CLI's dump failed")
+    name = "variables.size=1x.cycles=2.level=0"
+    sol = files / f"solution.{name}"
+    shutil.copy(out / name, sol)
+
+    def validate():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(cli + ["-v"])
+        return rc, buf.getvalue()
+
+    rc, text = validate()
+    require(rc == 0 and "PASS: variables[] validated successfully" in text,
+            f"-v against the port's own fp64 dump: rc {rc}\n{text}")
+    v = np.loadtxt(sol)
+    v[100, 4] *= 1 + 1e-6
+    np.savetxt(sol, v, fmt="%.17e")
+    rc_bad, text_bad = validate()
+    require(rc_bad == 1 and "Validation of variables[] failed" in text_bad,
+            f"-v against a perturbed solution: rc {rc_bad}\n{text_bad}")
+    log(f"CLI -c FILE --output-variables, then -v: PASS, exit 0; against "
+        f"a perturbed solution file: exit 1 "
+        f"({text_bad.strip().splitlines()[-1][:100]})")
+    verdict = capacity.acceptance(box, plan_cache_dir=plans)
+    require(verdict["accepted"], f"capacity criterion: {verdict}")
+    log(f"capacity.acceptance on the box flagship (fp32 auto, fp64 "
+        f"'segment'): accepted, max rel {verdict['max_rel_fp32_vs_fp64']:.3e}"
+        f" (tol {verdict['tol']:.0e}), RMS fp32 {verdict['rms_fp32']} fp64 "
+        f"{verdict['rms_fp64']}")
+    secs = time.perf_counter() - t0
+    log(f"options phase: {secs:.1f} s (watchdog {WATCHDOG_S} s)")
+    return secs
+
+
+def variant_ms(solver, what: str, card_label: str) -> float:
+    """ms per cycle of `solver` through run: CUDA events over 5 cycles
+    after a warm one."""
+    import torch
+    solver.run(1)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    solver.run(5)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 5
+    log(f"variant {what}: {ms:.3f} ms a cycle through run (CUDA events "
+        f"over 5 cycles after 1) [{card_label}]")
+    return ms
+
+
 def flux_records(u, run, card_label: str):
     """The record of edge_csr.flux over level 0's whole owner CSR of an
     unfused 'window' solver on the tet flagship (name suffixed .tet),
@@ -1641,6 +1890,10 @@ def smoke(tet_job, scratch: Path) -> int:
     unfused, runs_unfused = monitor_phase(
         solver, tr, tf64, tets32[".tet"], mesh, m32, tet_input, scratch,
         f"{name}, {smi}")
+
+    # --- the kernel variants, checkpoints, dumps, -v, capacity ---
+    options_phase(solver, mesh, m32, p64, tr, tf64, tets32[".tet"],
+                  tet_input, scratch, f"{name}, {smi}")
 
     # --- times at the level-0 shapes, for each dtype ---
     records = []

@@ -22,6 +22,7 @@ import sys
 import time
 
 from ..core.config import ACCUMULATE_MODES, DTYPES
+from ..monitor.opstats import SETTLE_S
 
 # the cycles of one run_batched replay
 K = 10
@@ -36,10 +37,12 @@ def profile_cycles(fn, cycles: int):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(SETTLE_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / cycles * 1e3
+        time.sleep(SETTLE_S)
     events = prof.key_averages()
     kernels = [e for e in events if e.self_device_time_total > 0
                and e.device_type == torch.autograd.DeviceType.CUDA]

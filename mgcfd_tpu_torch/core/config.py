@@ -4,45 +4,25 @@ SolverConfig, so that a configuration reads the same in both packages.
 A field whose feature the port does not have must keep its default;
 ``validate()`` raises NotImplementedError for any other value and names
 the ROADMAP item that brings the feature, or says that the field chooses
-a TPU formulation with no counterpart here.
+a TPU formulation with no counterpart here. It refuses flux_fission where
+mgcfd_tpu refuses it, with the same ValueError.
 """
 from __future__ import annotations
 
 import dataclasses
 
-ACCUMULATE_MODES = ("auto", "segment", "window", "pallas", "shift")
+ACCUMULATE_MODES = ("auto", "segment", "scatter", "ell", "window", "pallas",
+                    "shift")
 MONITOR_MODES = ("fused", "instrumented")
 # bfloat16 is a storage format: the kernels load bf16, compute in f32 and
 # round once on store; the plain paths run op by op in bf16, as XLA does
 DTYPES = ("float32", "float64", "bfloat16")
 
-# accumulate values of the JAX package that the port does not have yet
-_ACCUMULATE_ROADMAP = {
-    "ell": "ROADMAP.md queue 1, item 4 (prep/incidence.py)",
-    "scatter": "ROADMAP.md queue 1, item 4 (accumulate_flux scatter mode)",
-}
-
 # field -> ROADMAP item; the field must keep its default until then
 _NOT_PORTED = {
-    "validate_result": "queue 1, item 6 (validate/)",
-    "output_variables": "queue 1, item 6 (validate/golden.py dumps)",
-    "output_fluxes": "queue 1, item 6 (validate/golden.py dumps)",
-    "output_step_factors": "queue 1, item 6 (validate/golden.py dumps)",
-    "output_volumes": "queue 1, item 6 (validate/golden.py dumps)",
-    "output_edge_fluxes": "queue 1, item 6 (validate/golden.py dumps)",
-    "flux_cripple": "queue 1, item 4 (crippled flux twin)",
-    "flux_precompute_edge_weights": "queue 1, item 4 (segment-path |w|)",
-    "checkpoint_dir": "queue 1, item 6 (utils/checkpoint.py)",
-    "checkpoint_every": "queue 1, item 6 (utils/checkpoint.py)",
-    "resume": "queue 1, item 6 (utils/checkpoint.py)",
     "num_partitions": "queue 1, item 9 (parallel/)",
     "partition_2d": "queue 1, item 9 (parallel/)",
     "shard_levels": "queue 1, item 9 (parallel/)",
-    "flux_fission": "queue 1, item 4 (the fission formulation of "
-                    "accumulate_flux)",
-    "mg_gather": "queue 1, item 4 (the scatter formulation of the MG "
-                 "transfers)",
-    "plan_cache_dir": "queue 1, item 4 (prep/window.py cached_plan)",
 }
 
 # field -> why it has no counterpart; it must keep its default
@@ -80,16 +60,21 @@ class SolverConfig:
     flux_reuse_factor: bool = False
     include_indirect_rw: bool = True  # the reference runs it in the RK loop
 
+    # utils/checkpoint.py: node-major npz snapshots, each package's
+    # readable by the other
     checkpoint_dir: str = ""
-    checkpoint_every: int = 0
-    resume: bool = False
+    checkpoint_every: int = 0         # cycles between snapshots (0 = off)
+    resume: bool = False              # resume from the latest snapshot
     event_config_file: str = ""       # -p: the cost file's events
 
     dtype: str = "float32"            # one of DTYPES
-    # 'auto' resolves at solver build: on CUDA 'pallas' when every
-    # level's shift plan covers >= 0.995 of its edges (box-class meshes),
-    # else 'window'; 'segment' on the CPU.
-    #   'segment'  the plain edge-stream path (index_add_);
+    # 'auto' resolves at solver build: 'segment' with flux_fission or on
+    # the CPU; on CUDA 'pallas' when every level's shift plan covers
+    # >= 0.995 of its edges (box-class meshes), else 'window'.
+    #   'segment'  the plain edge-stream path (one index_add_);
+    #   'scatter'  the same values through chained index_add_ calls;
+    #   'ell'      each node gathers its half-edges' values from fixed-
+    #              width incidence tables (prep/incidence.py);
     #   'window'   the CSR kernels — on the card an owner-sorted CSR
     #              (prep/csr.py), not the TPU's (8, 128) window plan;
     #   'pallas'   the span kernels of box-class meshes (prep/shift.py,
@@ -110,8 +95,11 @@ class SolverConfig:
     # modes are variable-major whatever its value
     transposed: bool = False
     window_tile_order: bool = True
+    # the MG transfers through the wsum kernels on the kernel paths
+    # (True), or the plain scatter formulation (False), as in mgcfd_tpu
     mg_gather: bool = True
-    plan_cache_dir: str = ""
+    plan_cache_dir: str = ""          # content-keyed npz cache of the
+    # port's plans (prep/plancache.py); "" = rebuild
     compile_cache_dir: str = ""
     check_invalid_every: int = 1      # host-side NaN-guard cadence (cycles)
     num_partitions: int = 1
@@ -120,11 +108,12 @@ class SolverConfig:
     monitor_mode: str = "fused"       # one of MONITOR_MODES (the CLI's)
 
     def validate(self) -> None:
-        """Reject a configuration the port would silently get wrong."""
-        if self.accumulate in _ACCUMULATE_ROADMAP:
-            raise NotImplementedError(
-                f"accumulate='{self.accumulate}' is not ported yet: "
-                f"{_ACCUMULATE_ROADMAP[self.accumulate]}")
+        """Reject a configuration the port would silently get wrong.
+        FLUX_FISSION is the reference's per-edge store + update split
+        (flux_loops.cpp:120-123, cfd_loops.cpp:159-213); the span and CSR
+        formulations have no per-edge store phase, so the flag is refused
+        there, as mgcfd_tpu refuses it (its SolverConfig.validate); the
+        edge-stream modes (segment, scatter, ell) honour it."""
         if self.accumulate not in ACCUMULATE_MODES:
             raise ValueError(f"unknown accumulate mode {self.accumulate!r}")
         if self.dtype not in DTYPES:
@@ -142,6 +131,16 @@ class SolverConfig:
                 raise NotImplementedError(
                     f"SolverConfig.{f.name} has no counterpart in the "
                     f"port: {_NO_COUNTERPART[f.name]}")
+        if self.flux_fission and (
+                self.accumulate in ("shift", "pallas", "window")
+                or self.transposed):
+            how = (f"accumulate='{self.accumulate}'"
+                   + (" with transposed state" if self.transposed else ""))
+            raise ValueError(
+                f"flux_fission is undefined for {how}: these "
+                "formulations have no per-edge store phase. Use "
+                "accumulate='segment' (structurally fission) or drop "
+                "the flag.")
         if self.monitor_mode not in MONITOR_MODES:
             raise ValueError(f"unknown monitor mode {self.monitor_mode!r}")
 

@@ -114,15 +114,33 @@ def _span_cost(lvl, mode: str, sz: int):
     return nbytes, ops
 
 
+def _fission_cost(lvl, function: str, sz: int):
+    """flux_fission's two phases on the edge stream: 'flux' reads the
+    state and the edge lists and writes every edge's values; 'update'
+    reads the values and the destinations and writes (N, 5)."""
+    n, e = lvl.num_nodes, int(lvl.edge_a.shape[0])
+    nb = int(lvl.bedge_b.shape[0]) + int(lvl.wedge_b.shape[0])
+    if function == "flux":
+        return (sz * 5 * n + e * (16 + 3 * sz) + nb * (8 + 3 * sz)
+                + sz * 5 * (e + nb),
+                (EDGE_FLUX_OPS - 10) * e + (EDGE_BW_OPS - 5) * nb)
+    return (sz * 5 * (e + nb) + 8 * (2 * e + nb) + sz * 5 * n,
+            5 * (3 * e + nb))
+
+
 def function_cost(function: str, levels, level: int, accumulate: str,
-                  variable_major: bool, sz: int):
+                  variable_major: bool, sz: int, fission: bool = False):
     """One call of a solver function on `level` (a DeviceLevel of
-    `levels`) of a path: compute_step, flux, time_step, indirect_rw,
-    restrict (this level onto the next) or prolong (the next onto this).
-    Flux includes the boundary and wall edges: on the variable-major
-    paths their aggregated normals (11, N) and BW_OPS_PER_ROW a node."""
+    `levels`) of a path: compute_step, flux, update (fission only),
+    time_step, indirect_rw, restrict (this level onto the next) or
+    prolong (the next onto this). Flux includes the boundary and wall
+    edges: on the variable-major paths their aggregated normals (11, N)
+    and BW_OPS_PER_ROW a node; under fission it is the per-edge values
+    alone and update their accumulation."""
     lvl = levels[level]
     n = lvl.num_nodes
+    if fission and function in ("flux", "update"):
+        return _fission_cost(lvl, function, sz)
     if function == "compute_step":
         return sz * n * (5 + 1 + 1 + 1), STEP_OPS_PER_NODE * n
     if function == "time_step":

@@ -27,9 +27,14 @@ on MGCFDSolver (monitor/opstats.measure_production), which charges the
 fused launch to the flux row.
 
 Iteration counts are mgcfd_tpu's: internal edges for flux, indirect_rw
-and prolong, nodes for compute_step, time_step and restrict. `update`
-(the fission formulation's accumulate) stays 0: flux_fission is refused
-until ROADMAP item 4.
+and prolong, nodes for compute_step, time_step and restrict, and under
+flux_fission internal + boundary + wall edges for `update`, the separate
+accumulation of the per-edge values that the flux call then only stores.
+As in mgcfd_tpu's instrumented solver, the crippled flux twin does not
+run here (flux_cripple only labels the CSV's Flux variant field; the
+fused cycle runs the twin outside every function, so --measure-ops on
+MGCFDSolver charges it to no function), and this solver neither writes
+nor resumes from checkpoints.
 """
 from __future__ import annotations
 
@@ -72,16 +77,21 @@ class InstrumentedSolver:
 
     def __init__(self, mesh: MultigridMesh,
                  config: SolverConfig | None = None, device=None):
-        self._base = MGCFDSolver(mesh, config, device)
+        config = config or SolverConfig()
+        # mgcfd_tpu's instrumented solver neither resumes nor writes
+        # checkpoints (see above)
+        self._base = MGCFDSolver(mesh, dataclasses.replace(
+            config, resume=False, checkpoint_every=0), device)
         self.mesh = mesh
         self.config = self._base.config
         self.device = self._base.device
         self.dmesh = self._base.dmesh
         self.tstate = variable_major(self.config)
-        # the fused stages cannot be split (see above); every cycle checked
+        # the fused stages cannot be split (see above), and the crippled
+        # twin does not run; every cycle checked
         self._base.config = dataclasses.replace(
-            self.config, fuse_stage=False, fuse_window_stage=False,
-            check_invalid_every=1)
+            self._base.config, fuse_stage=False, fuse_window_stage=False,
+            flux_cripple=False, check_invalid_every=1)
         self.stats = KernelStats(defaultdict(float), defaultdict(int),
                                  defaultdict(int))
         self._recording = True
@@ -107,6 +117,11 @@ class InstrumentedSolver:
         MGCFDSolver.variables)."""
         return self._base.variables(level)
 
+    def step_factors(self, level: int = 0):
+        """(N,) step factors of the current state (as
+        MGCFDSolver.step_factors)."""
+        return self._base.step_factors(level)
+
     @contextlib.contextmanager
     def _timed(self, function: str, level: int, rng):
         """One call of `function` on `level` inside `rng`, as wall seconds
@@ -115,6 +130,9 @@ class InstrumentedSolver:
         lvl = self.dmesh.levels[level]
         if function in _EDGE_FUNCTIONS:
             iters = int(lvl.edge_a.shape[0])
+        elif function == "update":      # every edge's value, fission
+            iters = int(lvl.edge_a.shape[0] + lvl.bedge_b.shape[0]
+                        + lvl.wedge_b.shape[0])
         elif function in _NODE_FUNCTIONS:
             iters = lvl.num_nodes
         else:
@@ -143,7 +161,7 @@ class InstrumentedSolver:
         for function, level in self.stats.calls:
             nbytes, ops = costs.function_cost(
                 function, self.dmesh.levels, level, self.config.accumulate,
-                self.tstate, sz)
+                self.tstate, sz, self.config.flux_fission)
             self.stats.cost_details.setdefault((function, level), {}).update(
                 model_bytes=nbytes, model_operations=ops)
 

@@ -28,12 +28,20 @@ import contextlib
 import dataclasses
 import os
 import re
+import time
 
 import torch
 
 from ..solver import solver as solver_mod
 
 _TAG_RE = re.compile(r"^k_(?P<function>.+)_l(?P<level>\d+)$")
+# seconds a profile on the card waits after it starts, before its work,
+# and again after its work has synchronised, before it stops. The
+# profiler keeps only the device records whose times fall inside its
+# window, and its device times can sit milliseconds off the host clock
+# that opens the window: with no wait at the start, a profile can lose
+# the records of its first kernels (bench/profile_window.py; PERF.md)
+SETTLE_S = 0.25
 # CUDA runtime and driver calls: cudaLaunchKernel, cuLaunchKernel, ...
 _RUNTIME_RE = re.compile(r"^cu(da)?[A-Z]")
 
@@ -117,14 +125,17 @@ def attribute(events, on_card: bool, device: str = "") -> Measurement:
 @contextlib.contextmanager
 def _preserved(solver):
     """An MGCFDSolver's state, RMS history and cycle count, restored on
-    leaving."""
+    leaving; the cycles inside write no checkpoint."""
     state = {k: [t.clone() for t in v] for k, v in solver.state.items()}
     rms, done = list(solver.rms_history), solver.completed_cycles
+    ck_every = solver.config.checkpoint_every
+    solver.config.checkpoint_every = 0
     try:
         yield
     finally:
         solver.state = state
         solver.rms_history, solver.completed_cycles = rms, done
+        solver.config.checkpoint_every = ck_every
 
 
 def profile_cycles(solver, cycles: int = 1):
@@ -148,9 +159,12 @@ def profile_cycles(solver, cycles: int = 1):
         if cuda:
             torch.cuda.synchronize(solver.device)
         with profile(activities=acts) as prof:
+            if cuda:
+                time.sleep(SETTLE_S)
             run()
             if cuda:
                 torch.cuda.synchronize(solver.device)
+                time.sleep(SETTLE_S)
     return prof
 
 

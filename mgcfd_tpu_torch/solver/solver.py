@@ -13,7 +13,9 @@ batch, on CUDA as one replay of a CUDA graph that captured them
 
 Paths, chosen by SolverConfig.accumulate:
   'segment'  node-major (N, 5) state, plain edge-stream ops (index_add_)
-             — the CPU path and the card's plain reference;
+             — the CPU path and the card's plain reference; 'scatter'
+             (chained index_add_) and 'ell' (incidence-table gathers,
+             prep/incidence.py) accumulate the same values otherwise;
   'window'   variable-major (5, N) state through the CUDA kernels over
              owner-sorted CSR plans (fused RK stage, rw twin, restriction
              and composed prolongation); on the CPU the same wrappers run
@@ -30,7 +32,19 @@ Paths, chosen by SolverConfig.accumulate:
              slices, or with transposed=True the variable-major rolled
              evaluation.
 
-The functions of one solver step (compute_step, flux, time_step,
+The reference's kernel variants: flux_cripple runs the crippled flux
+twin before each RK stage's flux on every path and discards it (outside
+every kscope, where mgcfd_tpu runs it outside every named scope);
+flux_fission splits a node-major stage's flux into the per-edge values
+(kscope flux) and their accumulation (kscope update);
+flux_precompute_edge_weights hands the edge-stream paths |w| taken in
+float64 on the host. With mg_gather=False the kernel paths restrict and
+prolong through the plain scatter formulation, as mgcfd_tpu does with
+its gather tables off. `run` writes a checkpoint (utils/checkpoint.py)
+every checkpoint_every cycles, and the solver resumes from the latest
+one when asked (resume); run_batched writes none, as in mgcfd_tpu.
+
+The functions of one solver step (compute_step, flux, update, time_step,
 indirect_rw, restrict, prolong) each run inside kscope(function, level).
 The instrumented solver (monitor/instrument.py) runs this same cycle with
 the fused stages off and times each function there (timed_calls). While a
@@ -61,13 +75,19 @@ from ..ops import (accumulate_flux, boundary_edge_flux, calc_rms,
                    cbrt_volumes, compute_step_factor,
                    compute_step_factor_legacy,
                    indirect_rw_edge_values, internal_edge_flux,
+                   internal_edge_flux_crippled,
                    invalid_variables_count, mg_restrict,
                    prolong_residuals_interpolate, residual, time_step,
                    wall_edge_flux)
 from ..ops import tops
 from ..prep.csr import build_edge_csr, build_flux_csr, build_prolong_csr, \
     build_restrict_csr
+from ..prep.incidence import DeviceIncidence, build_incidence, \
+    ell_accumulate
+from ..prep.plancache import cached_plan
 from ..prep.shift import build_shift_plan, shift_flux
+from ..utils.checkpoint import latest_checkpoint, load_checkpoint, \
+    save_checkpoint
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64,
           "bfloat16": torch.bfloat16}
@@ -87,6 +107,9 @@ class DeviceLevel:
     wedge_b: torch.Tensor
     wedge_w: torch.Tensor
     mg_mapping: Optional[torch.Tensor]
+    # flux_precompute_edge_weights: |edge_w| (the edge-stream paths)
+    edge_ewt: Optional[torch.Tensor] = None
+    ell: Optional[DeviceIncidence] = None  # accumulate='ell'
     # accumulate='window'
     csr: Optional[DeviceCSR] = None        # flux plan of this level
     # accumulate='window', 'pallas', transposed 'shift'
@@ -124,22 +147,33 @@ SHIFT_COVERAGE = 0.995   # auto takes the span kernels at this coverage
 
 def resolve_accumulate(mesh: MultigridMesh, config: SolverConfig,
                        device: torch.device):
-    """accumulate='auto' -> on CUDA 'pallas' when every level's shift plan
-    covers >= SHIFT_COVERAGE of its edges (box-class meshes), else
-    'window', at fp32 and fp64 alike (the H100 runs fp64 natively);
-    'segment' on the CPU. Mutates config in place. Returns the levels'
-    shift plans when it built them, else None, so that the caller need
-    not build them again. bfloat16 resolves as float32 does: on the card
-    the kernels keep it as a storage format, as JAX's do on the TPU."""
+    """accumulate='auto' -> 'segment' with flux_fission (the one
+    fission-structured target, as in mgcfd_tpu) or on the CPU; on CUDA
+    'pallas' when every level's shift plan covers >= SHIFT_COVERAGE of
+    its edges (box-class meshes), else 'window', at fp32 and fp64 alike
+    (the H100 runs fp64 natively). Explicit modes are never overridden.
+    Mutates config in place. Returns the levels' shift plans when it
+    built them, else None, so that the caller need not build them again.
+    bfloat16 resolves as float32 does: on the card the kernels keep it as
+    a storage format, as JAX's do on the TPU."""
     if config.accumulate != "auto":
         return None
-    if device.type != "cuda":
+    if config.flux_fission or device.type != "cuda":
         config.accumulate = "segment"
         return None
-    plans = [build_shift_plan(lv) for lv in mesh.levels]
+    plans = [shift_plan(lv, config.plan_cache_dir) for lv in mesh.levels]
     cov = min(p.coverage for p in plans)
     config.accumulate = "pallas" if cov >= SHIFT_COVERAGE else "window"
     return plans
+
+
+def shift_plan(lvl, cache_dir: str):
+    """The level's span plan, through the plan cache when it has a
+    directory."""
+    return cached_plan(
+        cache_dir, "torch-shift",
+        (lvl.edge_a, lvl.edge_b, lvl.edge_w, np.asarray([lvl.num_nodes])),
+        lambda: build_shift_plan(lvl))
 
 
 def variable_major(config: SolverConfig) -> bool:
@@ -152,9 +186,10 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
                         device: torch.device) -> DeviceMesh:
     """Condition the edge weights per mesh variant (euler3d:333-352) on
     copies, cast to the configured dtype, upload, and build the plans and
-    boundary/wall constants of the chosen path. Every float64 host array
-    is cast as mgcfd_tpu casts it (torch rounds float64 -> bfloat16
-    through float32, as jnp.asarray and ml_dtypes do)."""
+    boundary/wall constants of the chosen path, each plan through the
+    plan cache (config.plan_cache_dir). Every float64 host array is cast
+    as mgcfd_tpu casts it (torch rounds float64 -> bfloat16 through
+    float32, as jnp.asarray and ml_dtypes do)."""
     dtype = DTYPES[config.dtype]
     levels = [dataclasses.replace(lv, edge_w=lv.edge_w.copy(),
                                   bedge_w=lv.bedge_w.copy(),
@@ -166,8 +201,9 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
     plans = resolve_accumulate(dataclasses.replace(mesh, levels=levels),
                                config, device)
     mode = config.accumulate
+    cache = config.plan_cache_dir
     if mode in ("pallas", "shift") and plans is None:
-        plans = [build_shift_plan(lv) for lv in levels]
+        plans = [shift_plan(lv, cache) for lv in levels]
     ff_flux = far_field_state(np.float64)[1]
 
     def put(x, dt=dtype):
@@ -186,8 +222,16 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
             wedge_b=put(lv.wedge_b, torch.int64), wedge_w=put(lv.wedge_w),
             mg_mapping=None if lv.mg_mapping is None
             else put(lv.mg_mapping, torch.int64))
+        if config.flux_precompute_edge_weights:
+            d.edge_ewt = put(np.sqrt((lv.edge_w ** 2).sum(axis=1)))
+        if mode == "ell":
+            d.ell = DeviceIncidence.from_tables(build_incidence(lv), device,
+                                                dtype)
         if mode == "window":
-            d.csr = DeviceCSR.from_plan(build_flux_csr(lv), device, dtype)
+            d.csr = DeviceCSR.from_plan(cached_plan(
+                cache, "torch-flux", (lv.edge_a, lv.edge_b, lv.edge_w,
+                                      np.asarray([lv.num_nodes])),
+                lambda lv=lv: build_flux_csr(lv)), device, dtype)
         if mode in ("pallas", "shift"):
             plan = plans[li]
             d.shift = DeviceShift.from_plan(plan, lv.num_nodes, device,
@@ -197,9 +241,12 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
                            put(plan.spill_b, torch.int64),
                            put(plan.spill_w))
             elif plan.spill_a.shape[0]:
-                d.spill_csr = DeviceCSR.from_plan(
-                    build_edge_csr(lv.num_nodes, plan.spill_a,
-                                   plan.spill_b, plan.spill_w),
+                d.spill_csr = DeviceCSR.from_plan(cached_plan(
+                    cache, "torch-spill",
+                    (plan.spill_a, plan.spill_b, plan.spill_w,
+                     np.asarray([lv.num_nodes])),
+                    lambda lv=lv, p=plan: build_edge_csr(
+                        lv.num_nodes, p.spill_a, p.spill_b, p.spill_w)),
                     device, dtype)
         if variable_major(config):
             bdn, wln, wlc = tops.build_dense_boundary_wall(
@@ -207,16 +254,23 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
                 lv.wedge_w, ff_flux)
             d.nc = put(np.concatenate([bdn, wln, wlc], axis=0))
         dlevels.append(d)
-    if mode in ("window", "pallas"):
+    if mode in ("window", "pallas") and config.mg_gather:
         for i in range(len(levels) - 1):
             fine, coarse = levels[i], levels[i + 1]
-            plan, mapped = build_restrict_csr(
-                fine.mg_mapping, fine.num_nodes, coarse.num_nodes)
+            sizes = np.asarray([fine.num_nodes, coarse.num_nodes])
+            plan, mapped = cached_plan(
+                cache, "torch-restrict", (fine.mg_mapping, sizes),
+                lambda f=fine, c=coarse: build_restrict_csr(
+                    f.mg_mapping, f.num_nodes, c.num_nodes))
             dlevels[i].restrict_csr = DeviceCSR.from_plan(plan, device,
                                                           dtype)
             dlevels[i].restrict_mapped = torch.as_tensor(mapped).to(device)
-            dlevels[i].prolong_csr = DeviceCSR.from_plan(
-                build_prolong_csr(fine, coarse), device, dtype)
+            dlevels[i].prolong_csr = DeviceCSR.from_plan(cached_plan(
+                cache, "torch-prolong",
+                (fine.edge_a, fine.edge_b, fine.coords, coarse.coords,
+                 fine.mg_mapping, sizes),
+                lambda f=fine, c=coarse: build_prolong_csr(f, c)),
+                device, dtype)
     return DeviceMesh(levels=dlevels, variant=mesh.variant,
                       ff_flux=put(ff_flux))
 
@@ -273,18 +327,37 @@ def kscope(function: str, level: int):
 # one level, node-major paths ('segment', 'shift')
 # ---------------------------------------------------------------------------
 
-def _compute_fluxes(lvl: DeviceLevel, variables, ff_flux):
-    """Internal + boundary + wall flux: index_add_ over the edge stream,
-    or on the 'shift' path the per-span slices plus the boundary and wall
-    edges summed apart and then added (the order of mgcfd_tpu)."""
+def _flux_values(lvl: DeviceLevel, variables, ff_flux):
+    """Per-edge values (internal, boundary, wall) of the edge stream; the
+    internal ones with the precomputed |w| where the level has it."""
     val_bd = boundary_edge_flux(variables[lvl.bedge_b], lvl.bedge_w)
     val_w = wall_edge_flux(variables[lvl.wedge_b], lvl.wedge_w, ff_flux)
+    val_i = internal_edge_flux(variables[lvl.edge_a], variables[lvl.edge_b],
+                               lvl.edge_w, lvl.edge_ewt)
+    return val_i, val_bd, val_w
+
+
+def _accumulate(lvl: DeviceLevel, vals, mode: str):
+    """The per-edge values into (N, 5): the incidence tables' gathers
+    ('ell'), chained index_add_ ('scatter') or one index_add_."""
+    val_i, val_bd, val_w = vals
+    if mode == "ell":
+        return ell_accumulate(lvl.ell, val_i, val_bd, val_w)
+    return accumulate_flux(lvl.num_nodes, lvl.edge_a, lvl.edge_b, val_i,
+                           lvl.bedge_b, val_bd, lvl.wedge_b, val_w,
+                           mode="scatter" if mode == "scatter"
+                           else "segment")
+
+
+def _compute_fluxes(lvl: DeviceLevel, variables, ff_flux, mode: str):
+    """Internal + boundary + wall flux: the edge stream's values and their
+    accumulation, or on the 'shift' path the per-span slices plus the
+    boundary and wall edges summed apart and then added (the order of
+    mgcfd_tpu)."""
     if lvl.shift is None:
-        val_i = internal_edge_flux(variables[lvl.edge_a],
-                                   variables[lvl.edge_b], lvl.edge_w)
-        return accumulate_flux(lvl.num_nodes, lvl.edge_a, lvl.edge_b,
-                               val_i, lvl.bedge_b, val_bd, lvl.wedge_b,
-                               val_w)
+        return _accumulate(lvl, _flux_values(lvl, variables, ff_flux), mode)
+    val_bd = boundary_edge_flux(variables[lvl.bedge_b], lvl.bedge_w)
+    val_w = wall_edge_flux(variables[lvl.wedge_b], lvl.wedge_w, ff_flux)
     n = lvl.num_nodes
     sh = lvl.shift
     weights = [sh.w[k, :3, :n - d].T for k, d in enumerate(sh.deltas)]
@@ -293,6 +366,15 @@ def _compute_fluxes(lvl: DeviceLevel, variables, ff_flux):
     bw = torch.zeros_like(flux).index_add_(
         0, torch.cat([lvl.bedge_b, lvl.wedge_b]), torch.cat([val_bd, val_w]))
     return flux + bw
+
+
+def _crippled_twin(lvl: DeviceLevel, variables) -> None:
+    """FLUX_CRIPPLE (euler3d_cpu_double.cpp:399-418): the crippled flux
+    over every internal edge of a node-major (N, 5) state or view, its
+    result discarded. It runs outside every kscope, as mgcfd_tpu runs it
+    outside every named scope."""
+    internal_edge_flux_crippled(variables[lvl.edge_a],
+                                variables[lvl.edge_b], lvl.edge_w)
 
 
 def _indirect_rw(lvl: DeviceLevel, variables):
@@ -321,8 +403,17 @@ def _visit(lvl: DeviceLevel, variables, ff_flux, config: SolverConfig,
     with kscope("invalid_count", tag):
         invalid = torch.zeros((), dtype=torch.int64, device=variables.device)
     for j in range(RK):
-        with kscope("flux", tag):
-            fluxes = _compute_fluxes(lvl, variables, ff_flux)
+        if config.flux_cripple:
+            _crippled_twin(lvl, variables)
+        if config.flux_fission:
+            with kscope("flux", tag):
+                vals = _flux_values(lvl, variables, ff_flux)
+            with kscope("update", tag):
+                fluxes = _accumulate(lvl, vals, config.accumulate)
+        else:
+            with kscope("flux", tag):
+                fluxes = _compute_fluxes(lvl, variables, ff_flux,
+                                         config.accumulate)
         with kscope("time_step", tag):
             variables = time_step(j, sf, fluxes, old)
         with kscope("invalid_count", tag):
@@ -365,6 +456,8 @@ def _visit_window(lvl: DeviceLevel, q, config: SolverConfig,
     with kscope("invalid_count", tag):
         invalid = torch.zeros((), dtype=torch.int64, device=q.device)
     for j in range(RK):
+        if config.flux_cripple:
+            _crippled_twin(lvl, q.T)
         if fused:
             with kscope("flux", tag):
                 q, inv = fused_stage(lvl.csr, lvl.nc, q, old,
@@ -459,6 +552,8 @@ def _visit_span(lvl: DeviceLevel, q, config: SolverConfig,
     with kscope("invalid_count", tag):
         invalid = torch.zeros((), dtype=torch.int64, device=q.device)
     for j in range(RK):
+        if config.flux_cripple:
+            _crippled_twin(lvl, q.T)
         if fused:
             with kscope("flux", tag):
                 spill = (None if lvl.spill_csr is None
@@ -610,15 +705,31 @@ class MGCFDSolver:
         self.rms_history: list[float] = []
         self.completed_cycles = 0
         self._graph: Optional[CycleGraph] = None
+        if self.config.resume and self.config.checkpoint_dir:
+            path = latest_checkpoint(self.config.checkpoint_dir)
+            if path is not None:
+                st, self.completed_cycles, self.rms_history = \
+                    load_checkpoint(path, mesh, self.dtype, self.device)
+                self.state = self._layout(st["variables"], st["residuals"])
 
     def _layout(self, variables, residuals) -> dict:
-        """Node-major host arrays -> the state dict in the path's layout."""
+        """Node-major arrays or tensors -> the state dict in the path's
+        layout, on the device at the solver's dtype."""
         def put(a):
-            t = torch.as_tensor(np.asarray(a, np.float64)).to(
-                device=self.device, dtype=self.dtype)
+            t = a if isinstance(a, torch.Tensor) else \
+                torch.as_tensor(np.asarray(a, np.float64))
+            t = t.to(device=self.device, dtype=self.dtype)
             return t.T.contiguous() if self._tstate else t
         return {"variables": [put(v) for v in variables],
                 "residuals": [put(r) for r in residuals]}
+
+    def _state_node_major(self) -> dict:
+        """The state as node-major (N, 5) numpy arrays, as checkpoints
+        store it (bfloat16 widened to float32, which is exact)."""
+        def host(t):
+            t = self._node_major(t).detach().to("cpu")
+            return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        return {k: [host(t) for t in v] for k, v in self.state.items()}
 
     def load_state(self, state: dict) -> None:
         """Install a node-major state ({'variables': [...],
@@ -682,11 +793,13 @@ class MGCFDSolver:
         return rms, invalid_total
 
     def run(self, cycles: int | None = None, verbose: bool = False):
-        """Run `cycles` more V-cycles (default config.num_cycles). Raises
-        FloatingPointError when a checked cycle produced an invalid
-        state."""
+        """Run `cycles` more V-cycles (default config.num_cycles), writing
+        a checkpoint every config.checkpoint_every completed cycles when
+        config.checkpoint_dir is set. Raises FloatingPointError when a
+        checked cycle produced an invalid state."""
         cycles = cycles if cycles is not None else self.config.num_cycles
         check_every = max(1, self.config.check_invalid_every)
+        ck_every = self.config.checkpoint_every
         for i in range(cycles):
             rms, invalid = self.cycle()
             if (i + 1) % check_every == 0 or i == cycles - 1:
@@ -703,6 +816,11 @@ class MGCFDSolver:
                     print(f"MG cycle {i + 1} / {cycles} "
                           f"(RMS = {self.rms_history[-1]:.3e})", flush=True)
             self.completed_cycles += 1
+            if (ck_every and self.config.checkpoint_dir
+                    and self.completed_cycles % ck_every == 0):
+                save_checkpoint(self.config.checkpoint_dir, self.mesh,
+                                self._state_node_major(),
+                                self.completed_cycles, self.rms_history)
         return self.state
 
     def _batch(self, k: int):
@@ -723,7 +841,9 @@ class MGCFDSolver:
         """Run `cycles` cycles in batches of K = cycles_per_dispatch (see
         _batch), as mgcfd_tpu's run_batched does: the RMS and invalid
         count of every cycle are kept on the device, the fail-fast check
-        runs once per batch, and a tail shorter than K goes through run."""
+        runs once per batch, and a tail shorter than K goes through run.
+        It writes no checkpoint, as mgcfd_tpu's run_batched writes none
+        (the tail through run keeps run's cadence)."""
         k = max(1, min(cycles_per_dispatch, cycles))
         done = 0
         while done < cycles:

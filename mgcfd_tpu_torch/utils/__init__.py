@@ -1,1 +1,1 @@
-"""Host utilities: gated diagnostic logging."""
+"""Host utilities: gated diagnostic logging and checkpoints."""

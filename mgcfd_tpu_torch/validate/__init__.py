@@ -1,3 +1,7 @@
-from .golden import ValidationError, identify_differences
+from .golden import (ValidationError, dump_edge_fluxes, dump_scalars,
+                     dump_variables, identify_differences, output_filepath,
+                     read_solution, solution_filepath)
 
-__all__ = ["ValidationError", "identify_differences"]
+__all__ = ["ValidationError", "dump_edge_fluxes", "dump_scalars",
+           "dump_variables", "identify_differences", "output_filepath",
+           "read_solution", "solution_filepath"]

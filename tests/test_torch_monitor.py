@@ -431,10 +431,10 @@ def test_cli_profile_dir(tet_files, tmp_path, capsys):
 
 @pytest.mark.parametrize("flag,why", [
     (["--dump-hlo", "x"], "no HLO to dump"),
-    (["--output-variables"], "item 6"),
-    (["--flux-fission"], "item 4"),
+    (["--compile-cache", "x"], "compiles no XLA program"),
+    (["--shard-levels", "2"], "item 9"),
     (["--partitions", "2"], "item 9"),
-    (["-c", "run.conf"], "item 8")])
+    (["--partition-2d", "2x2"], "item 9")])
 def test_cli_refusals(tet_files, capsys, flag, why):
     with pytest.raises(SystemExit):
         cli_main(["-i", tet_files, "--platform", "cpu", *flag])

@@ -115,23 +115,33 @@ def test_nan_guard_raises(path):
 
 
 def test_accumulate_resolution_and_unported_options():
+    """auto on the CPU is the plain path, and with flux_fission it is
+    'segment' on CUDA too; 'ell' and 'scatter' run; the sharding fields,
+    the TPU-only fields and an unknown dtype are refused; fission on the
+    CSR kernels is refused as mgcfd_tpu refuses it."""
+    from mgcfd_tpu_torch.solver.solver import resolve_accumulate
     mesh = mesh_from_arrays(jax_mg_box(4, 4, 4, 2))
     cfg = SolverConfig(dtype="float64")
     MGCFDSolver(mesh, cfg, device="cpu")
     assert cfg.accumulate == "segment"      # auto on the CPU
+    fission = SolverConfig(flux_fission=True)
+    assert resolve_accumulate(mesh, fission, torch.device("cuda")) is None
+    assert fission.accumulate == "segment"
     for mode in ("ell", "scatter"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MGCFDSolver(mesh, SolverConfig(accumulate=mode), device="cpu")
-    for kw in ({"flux_cripple": True}, {"num_partitions": 2},
-               {"checkpoint_dir": "x"}, {"dtype": "float16"}):
+        s = MGCFDSolver(mesh, SolverConfig(accumulate=mode), device="cpu")
+        assert s.config.accumulate == mode
+    for kw in ({"num_partitions": 2}, {"window_tile_order": False},
+               {"dtype": "float16"}):
         with pytest.raises(NotImplementedError):
             MGCFDSolver(mesh, SolverConfig(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="flux_fission"):
+    with pytest.raises(ValueError, match="flux_fission"):
         SolverConfig(flux_fission=True, accumulate="window").validate()
 
 
-# every field the port lacks, at a value other than its default (the
-# monitor's fields are ported: tests/test_torch_monitor.py)
+# every field the port once refused, at a value other than its default:
+# the sharding fields (item 9) and the TPU-only ones are still refused;
+# those of items 4 and 6 (the monitor's: tests/test_torch_monitor.py)
+# are ported and taken at any value
 UNPORTED = {
     "validate_result": True, "output_variables": True,
     "output_fluxes": True, "output_step_factors": True,
@@ -143,15 +153,21 @@ UNPORTED = {
     "compile_cache_dir": "c", "num_partitions": 2, "partition_2d": "2x2",
     "shard_levels": 2,
 }
+STILL_REFUSED = ("window_tile_order", "compile_cache_dir", "num_partitions",
+                 "partition_2d", "shard_levels")
 
 
 @pytest.mark.parametrize("field", list(UNPORTED))
 def test_unported_field_raises(field):
     """A field whose feature the port lacks is refused by name at any
-    value but its default, never silently ignored."""
+    value but its default, never silently ignored; a field ported since
+    is taken."""
     SolverConfig(**{field: JaxConfig.__dataclass_fields__[field].default}
                  ).validate()
-    with pytest.raises(NotImplementedError, match=field):
+    if field in STILL_REFUSED:
+        with pytest.raises(NotImplementedError, match=field):
+            SolverConfig(**{field: UNPORTED[field]}).validate()
+    else:
         SolverConfig(**{field: UNPORTED[field]}).validate()
 
 
