@@ -106,7 +106,28 @@ What it does, in order, printing each step with the elapsed seconds:
      then -v against that dump (PASS, exit 0) and against a perturbed one
      (exit 1); and capacity.acceptance on the box flagship (fp32 auto,
      fp64 'segment') accepted;
- 15. times each V-cycle (fp32 beside bf16) and each kernel at fp32, fp64
+ 15. the native mesh parser and the sharded solver (parallel/), with the
+     phase's seconds beside the watchdog: the tet flagship's files as the
+     child parsed them through the native parser (its host seconds, no
+     sidecar written, beside PR 10's 12.4 s Python read), and the 32^3
+     tet's files through both readers, every array equal and timed; one NCCL
+     rank (world size 1) at full width on the RCM tet flagship ('window'):
+     fp64 within 1e-10 of the single-device port on every level, 3
+     edge_csr.flux, 18 rw, 15 fused_stage and 3 of each transfer a cycle,
+     fp32 run_batched (one CUDA graph of 10 cycles, NCCL collectives
+     captured) bit-equal to run, ms a cycle through both beside the
+     single device's, the profiler's launches by family equal to the
+     counts, and level 0's edge_csr.flux over the [block | pool] operand
+     beside its bound; then 2 gloo ranks sharing the card (the tet
+     flagship) and 4 (the 32^3 tet) at fp64 within 1e-10 of the
+     single-device port with live separators and rank 0's launches a
+     cycle as counted (correctness legs: they measure no collective of
+     the card); edge_csr.flux over shard
+     0's level-0 CSR at P = 1, 2 and 4, RCM and shuffled, beside its
+     bound; and the CLI's --partitions 4 --partition-2d auto
+     --shard-levels 2 on the 32^3 tet's files in 4 gloo ranks on the
+     card, -v against the single-device CLI's fp64 dump;
+ 16. times each V-cycle (fp32 beside bf16) and each kernel at fp32, fp64
      and bf16 (each held to its plain version at the tolerance of 4
      first) beside its bound, its plain version, a library call where
      one computes the same function, and the launch floor (a one-element
@@ -120,7 +141,7 @@ What it does, in order, printing each step with the elapsed seconds:
      profiler's count of each kernel family's launches must equal the
      launch counts, in one replay (the capture's, added by run_batched)
      and in the cycles of run (the wrappers');
- 16. prints the card's name and power limit, one JSON line of kernel
+ 17. prints the card's name and power limit, one JSON line of kernel
      records, and last the JSON line {"ok": true, "device": {...}}.
 Any failed check raises, and the exit code is then non-zero. Without a
 CUDA device, or without the package beside this file, it exits non-zero
@@ -1566,6 +1587,271 @@ def flux_records(u, run, card_label: str):
                      launch_floor_ms(q.device), card_label, ".tet")
 
 
+
+
+def want_sharded(levels: int) -> dict:
+    """Launches per cycle of the sharded solver at shard_levels=1
+    ('window') on a mesh of `levels` levels: the V-cycle visits level 0
+    and the coarsest once, the others twice; level 0's 3 RK stages
+    through edge_csr.flux and rw over each rank's owner CSR, the
+    replicated levels' through fused_stage and rw; a restriction and a
+    prolongation a coarse level."""
+    visits = 2 * levels - 2
+    return {"edge_csr.flux": 3, "edge_csr.rw": 3 * visits,
+            "fused_stage": 3 * (visits - 1),
+            "edge_csr.wsum.restrict": levels - 1,
+            "edge_csr.wsum.prolong": levels - 1}
+
+
+# the 4-level tet flagship's: 3 edge_csr.flux, 18 rw, 15 fused_stage and
+# 3 of each transfer
+WANT_SHARDED = want_sharded(4)
+# the sharded solver against the single-device port at fp64: every value
+# within this relative difference (mgcfd_tpu's tests/test_parallel.py
+# holds its sharded solver to rtol 1e-10 with multigrid)
+SHARDED_REL = 1e-10
+# the PR 10 Python read of the tet flagship's files, host seconds on the
+# H100 machine (chip_smoke.py's phase 12 then; PERF.md)
+PYTHON_READ_PR10_S = 12.4
+
+
+def _share_rank(rank, mesh, cfg_kw: dict, cycles: int, out: str) -> None:
+    """One gloo rank of several on card 0 (parallel/launch.py): `cycles`
+    cycles of ShardedSolver, launches counted; rank 0 writes every level's
+    variables, the RMS, the separator size and its counts."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from mgcfd_tpu_torch import kernels
+    from mgcfd_tpu_torch.core.config import SolverConfig
+    from mgcfd_tpu_torch.parallel import ShardedSolver
+    s = ShardedSolver(mesh, SolverConfig(
+        **cfg_kw, num_partitions=dist.get_world_size()))
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.run(cycles)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    vs = [s.variables(lev) for lev in range(mesh.num_levels)]
+    if rank == 0:
+        np.savez(out, *vs, rms=np.asarray(s.rms_history), secs=secs,
+                 sep=float(s.smesh.level0.sep_mask.sum()),
+                 sharded=len(s.smesh.levels), acc=s.config.accumulate,
+                 counts=json.dumps(counts))
+
+
+def _cli_rank(rank, argv: list) -> None:
+    """One gloo rank on card 0 running the CLI inside the process group."""
+    from mgcfd_tpu_torch.cli.main import main as cli_main
+    rc = cli_main(argv)
+    if rc:
+        sys.exit(rc)
+
+
+def sharded_phase(solver, tr, ts, tf64, tet_input, secs, scratch,
+                  card_label: str):
+    """Phase 15 (module docstring): the native parser and the sharded
+    solver (parallel/) at full width on the tet flagship tr (ts: in the
+    generator's order; tf64: tr's fp64 'window' single-device solver after
+    2 cycles; secs: the child's host seconds). Returns (the sharded level 0's edge_csr.flux record,
+    its run_batched timing, the phase's seconds)."""
+    import shutil as sh
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from mgcfd_tpu_torch.cli.main import main as cli_main
+    from mgcfd_tpu_torch.core.config import SolverConfig
+    from mgcfd_tpu_torch.kernels import DeviceCSR, edge_csr
+    from mgcfd_tpu_torch.mesh import io_dat, load_multigrid_mesh
+    from mgcfd_tpu_torch.monitor.costs import edge_csr_cost
+    from mgcfd_tpu_torch.native import native_available
+    from mgcfd_tpu_torch.parallel import ShardedSolver, comm, partition
+    from mgcfd_tpu_torch.parallel.launch import run_ranks
+    from mgcfd_tpu_torch.parallel.sharded import conditioned
+    t0 = time.perf_counter()
+    plans = str(scratch / "plans")
+
+    # a. the native parser: the child's read of the flagship, and the
+    # 32^3 tet's files through both readers
+    require(native_available(), "the native mesh parser did not build")
+    require(secs["reader"] == "native", f"the tet flagship's files were "
+            f"read by the {secs['reader']} reader")
+    log(f"tet flagship files parsed by the native parser in "
+        f"{secs['parse_s']:.2f} s, no sidecar written (host, the child "
+        f"process; PR 10's Python read: {PYTHON_READ_PR10_S} s) "
+        f"[{card_label}]")
+    before = io_dat.READS["native"]
+    t1 = time.perf_counter()
+    nat = load_multigrid_mesh(tet_input, use_cache=False, use_native=True)
+    t2 = time.perf_counter()
+    py = load_multigrid_mesh(tet_input, use_cache=False, use_native=False)
+    t3 = time.perf_counter()
+    require(io_dat.READS["native"] - before == nat.num_levels,
+            "the 32^3 tet's levels did not all go through the native parser")
+    same_arrays(nat, py, "32^3 tet: native parser against the Python reader")
+    log(f"32^3 tet files: native parser {t2 - t1:.3f} s, Python reader "
+        f"{t3 - t2:.3f} s (host), every level's arrays equal "
+        f"[{card_label}]")
+
+    # b. one NCCL rank at full width on the tet flagship
+    require(tf64.completed_cycles == 2, "the fp64 reference is not at "
+            "cycle 2")
+    comm.init_process_group(0, 1, f"file://{scratch}/nccl_store",
+                            torch.device("cuda", 0))
+    try:
+        def sharded(dtype, **kw):
+            s = ShardedSolver(tr, SolverConfig(
+                dtype=dtype, num_partitions=1, plan_cache_dir=plans, **kw))
+            log(f"sharded solver ready: {tr.name} {dtype} P=1 "
+                f"{s.comm.backend} accumulate -> {s.config.accumulate}, "
+                f"{s.S} sharded level(s), level-0 block {s.shards[0].B} "
+                f"rows, CSR {s.shards[0].dev.csr.num_entries} entries")
+            return s
+
+        s64 = sharded("float64")
+        require(s64.config.accumulate == "window", "auto did not take "
+                "'window' on the tet flagship")
+        counted_run(s64, 2, "tet flagship sharded P=1 NCCL fp64",
+                    WANT_SHARDED)
+        close_to(s64, tf64, tr.num_levels, "tet flagship sharded P=1 fp64")
+        s32 = sharded("float32")
+        counts, pc = counted_run(s32, 2, "tet flagship sharded P=1 fp32",
+                                 WANT_SHARDED)
+        healthy(s32, "tet flagship sharded P=1 fp32")
+        batched_equals_run(lambda: sharded("float32"),
+                           "tet flagship sharded P=1 fp32", WANT_SHARDED)
+        timing = batched_timing(s32, "tet flagship RCM sharded P=1 NCCL "
+                                "'window' fp32", card_label)
+        # level 0's flux kernel over the [block | pool] operand the cycle
+        # gathers (the gather itself is not timed)
+        csr0 = s32.shards[0].dev.csr
+        q = s32.state["variables"][0]
+        comb = s32._exchange(s32.shards[0], q)
+        rows = [("edge_csr.flux", "edge_csr", "sharded",
+                 lambda: edge_csr.flux(csr0, comb, q),
+                 lambda: edge_csr.edge_csr_plain("flux", csr0, comb, q),
+                 None, *edge_csr_cost("flux", csr0, q.element_size()))]
+        records = time_rows(rows, {"sharded": (counts, pc)}, s32.dtype,
+                            launch_floor_ms(q.device), card_label,
+                            ".sharded_tet")
+    finally:
+        dist.destroy_process_group()
+
+    # c. gloo ranks that share the card: correctness legs, no collective
+    # of the card is measured here. 2 ranks run the tet flagship, 4 the
+    # 32^3 tet (their set-up is host time that grows with the mesh: 4
+    # ranks on the flagship took 42.5 s of a 397 s run in PR 13's call
+    # f1, against the 480 s watchdog)
+    nat.name = "tet 32^3"
+    small = solver(nat, "float64", "window")
+    small.run(2)
+    for P, share_mesh, ref in ((2, tr, tf64), (4, nat, small)):
+        # the partitions through the plan cache once, for every rank
+        partition.partition_mesh(conditioned(share_mesh), P,
+                                 plan_cache_dir=plans)
+        out = str(scratch / f"share{P}.npz")
+        t4 = time.perf_counter()
+        run_ranks(_share_rank, P, (share_mesh, {
+            "dtype": "float64", "accumulate": "window",
+            "plan_cache_dir": plans}, 2, out), share_card=True,
+                  timeout_s=240)
+        with np.load(out) as z:
+            got = dict(z.items())
+        require(float(got["sep"]) > 0, f"{P} ranks: no separator")
+        pcs = {k: v / 2 for k, v in json.loads(str(got["counts"])).items()}
+        want = want_sharded(share_mesh.num_levels)
+        want = {k: want.get(k, 0) for k in pcs.keys() | want.keys()}
+        require({k: pcs.get(k, 0) for k in want} == want, f"{P} ranks: "
+                f"rank 0's launches per cycle {pcs} != {want}")
+        for lev in range(share_mesh.num_levels):
+            rel = close_arrays(got[f"arr_{lev}"], ref.variables(lev))
+            require(rel <= SHARDED_REL, f"{P} gloo ranks level {lev}: "
+                    f"relative difference {rel:.3e}")
+        log(f"{share_mesh.name} over {P} gloo ranks sharing the card, fp64 "
+            f"'window', 2 cycles: every level within {SHARDED_REL:.0e} of "
+            f"the single-device port; separator {float(got['sep']):.0f} "
+            f"nodes; rank 0's launches per cycle {pcs}; 2 cycles in "
+            f"{float(got['secs']):.2f} s on rank 0 (host clock, a "
+            f"correctness leg: gloo copies every collective through host "
+            f"memory, no collective of the card is measured); the leg took "
+            f"{time.perf_counter() - t4:.1f} s")
+
+    # d. edge_csr.flux over rank 0's level-0 [block | pool] CSR at each P,
+    # in RCM and in the generator's shuffled order: a kernel timing of the
+    # card alone (random states, no collective)
+    dev = tf64.dmesh.levels[0].volumes.device
+    for label, m in (("RCM", tr), ("shuffled", ts)):
+        lvl = conditioned(m).levels[0]
+        for P in (1, 2, 4):
+            sl = partition.partition_level(lvl, P)
+            csr = DeviceCSR.from_plan(partition.shard_flux_csr(lvl, sl, 0),
+                                      dev, torch.float32)
+            comb = random_state(csr.num_cols, 90 + P, torch.float32, dev)
+            own = comb[:, :csr.num_rows].contiguous()
+            check_cases([(f"edge_csr.flux shard 0 of {P} ({label})",
+                          edge_csr.flux(csr, comb, own),
+                          edge_csr.edge_csr_plain("flux", csr, comb, own))],
+                        torch.float32)
+            nbytes, nops = edge_csr_cost("flux", csr, 4)
+            bound = max(nbytes / HBM_BYTES_PER_S, nops / FP32_FLOP_PER_S)
+            us = device_ms(lambda: edge_csr.flux(csr, comb, own)) * 1e3
+            log(f"edge_csr.flux, tet flagship level 0 {label}, shard 0 of "
+                f"{P}: {csr.num_rows} rows, {sl.P * sl.smax} pool columns, "
+                f"{csr.num_entries} entries: {us:.1f} us a launch, bound "
+                f"{bound * 1e6:.1f} us (bytes {nbytes / 1e6:.1f} MB), share "
+                f"{bound * 1e6 / us:.2f} fp32 [{card_label}]")
+
+    # e. the CLI: --partitions 4 --partition-2d auto --shard-levels 2 on
+    # the 32^3 tet's files in 4 gloo ranks on the card, -v against the
+    # single-device CLI's fp64 dump
+    files = scratch / "tet32_sharded"
+    files.mkdir()
+    for f in Path(tet_input).parent.iterdir():
+        if f.is_file():
+            sh.copy(f, files / f.name)
+    base = ["-i", str(files / "input.dat"), "-g", "2", "--dtype", "float64"]
+    require(cli_main(base + ["--output-variables", "-o",
+                             f"{scratch}/cli_single/"]) == 0,
+            "the single-device CLI failed on the 32^3 tet")
+    name = "variables.size=1x.cycles=2.level=0"
+    sh.copy(scratch / "cli_single" / name, files / f"solution.{name}")
+    argv = base + ["-d", str(files), "--partitions", "4", "--partition-2d",
+                   "auto", "--shard-levels", "2", "-v"]
+    t5 = time.perf_counter()
+    run_ranks(_cli_rank, 4, (argv,), share_card=True, timeout_s=240)
+    log(f"CLI {' '.join(argv[4:])} over 4 gloo ranks on the card: -v PASS "
+        f"against the single-device CLI's dump ({time.perf_counter() - t5:.1f}"
+        f" s, host)")
+    secs_phase = time.perf_counter() - t0
+    log(f"phase 15 (native parser, sharded solver) took {secs_phase:.1f} s; "
+        f"the run has spent {time.perf_counter() - T0:.1f} s of the "
+        f"{WATCHDOG_S} s watchdog")
+    return records, timing, secs_phase
+
+
+def close_arrays(got, want) -> float:
+    """max |got - want| / |want| over the elements (the state is O(1) and
+    never near zero: density, energy and the far-field momentum)."""
+    import numpy as np
+    scale = np.maximum(np.abs(want), np.abs(want).max(axis=0) * 1e-3)
+    return float((np.abs(got - want) / scale).max())
+
+
+def close_to(a, b, levels: int, what: str) -> None:
+    """Two solvers' every level within SHARDED_REL (close_arrays), RMS
+    histories too."""
+    import numpy as np
+    rels = [close_arrays(a.variables(lev), b.variables(lev))
+            for lev in range(levels)]
+    rms = close_arrays(np.asarray(a.rms_history), np.asarray(b.rms_history))
+    require(max(rels) <= SHARDED_REL and rms <= SHARDED_REL,
+            f"{what}: relative differences {rels}, RMS {rms}")
+    log(f"{what}: every level within {SHARDED_REL:.0e} of the single-device "
+        f"port (relative differences {rels}; RMS {rms:.2e})")
+
+
 def start_tet_flagship(here: Path, scratch: Path):
     """Generate, renumber, write and parse the tet flagship in a child
     process (bench/tet_flagship.py), so that its minutes of host time
@@ -1622,6 +1908,10 @@ def main() -> int:
         if job[0].poll() is None:
             job[0].kill()
             job[0].communicate()
+        # the ranks' forkserver and resource tracker would otherwise
+        # outlive this process for a while
+        from mgcfd_tpu_torch.parallel.launch import stop_servers
+        stop_servers()
         shutil.rmtree(scratch, ignore_errors=True)
 
 
@@ -1895,6 +2185,10 @@ def smoke(tet_job, scratch: Path) -> int:
     options_phase(solver, mesh, m32, p64, tr, tf64, tets32[".tet"],
                   tet_input, scratch, f"{name}, {smi}")
 
+    # --- the native parser and the sharded solver ---
+    shard_records, shard_timing, _ = sharded_phase(
+        solver, tr, ts, tf64, tet_input, secs, scratch, f"{name}, {smi}")
+
     # --- times at the level-0 shapes, for each dtype ---
     records = []
     for s_main, s_win, runs in ((m32, w32, runs32), (m64, w64, runs64),
@@ -1918,6 +2212,15 @@ def smoke(tet_job, scratch: Path) -> int:
         f"{cycle_ms[('window', 'fp32')]:.3f} ms, bf16 "
         f"{cycle_ms[('window', 'bf16')]:.3f} ms per cycle (CUDA events "
         f"over 10 cycles after 2) [{name}, {smi}]")
+
+    records += shard_records
+    timings.append(shard_timing)
+    log(f"V-cycle, tet flagship RCM 'window' fp32 through run_batched "
+        f"(K = {BATCH_K}): single device "
+        f"{timings[3]['run_batched_ms']:.3f} ms, sharded P=1 (NCCL) "
+        f"{shard_timing['run_batched_ms']:.3f} ms; through run: "
+        f"{timings[3]['run_ms']:.3f} and {shard_timing['run_ms']:.3f} ms "
+        f"[{name}, {smi}]")
 
     log("run_batched timings: " + json.dumps(timings))
     print(smi, flush=True)

@@ -15,6 +15,7 @@ axes of the one program:
                                       switches (FLUX_CRIPPLE still
                                       excludes the others)
   mesh multiplier raising          -> -m passthrough
+  thread counts                    -> partition counts (ranks)
 
 Profile schema (mgcfd_tpu/bench/profiles/annotated.json):
   {"compile": {"dtypes": [...], "accumulate": [...],
@@ -24,10 +25,11 @@ Profile schema (mgcfd_tpu/bench/profiles/annotated.json):
            "validate": bool, "events": [...]},
    "setup": {"jobs dir": "...", "input dat": "...", "data dirpath": "...",
              "synthetic": "NX,NY,NZ,L"}}
-A profile with a partition count above 1 is refused: the sharded solver
-is not ported yet (ROADMAP.md queue 1, item 9). Jobs get no --dump-hlo
-and no --compile-cache (the port compiles no XLA program), and the
-profile's "compile cache" and "shard levels" keys are ignored.
+A partition count above 1 gives jobs of the sharded solver
+(--partitions P, which starts its P ranks itself; "shard levels", default
+[1], adds --shard-levels S and a .S<S> name suffix), as mgcfd_tpu's do.
+Jobs get no --dump-hlo and no --compile-cache (the port compiles no XLA
+program), and the profile's "compile cache" key is ignored.
 """
 from __future__ import annotations
 
@@ -81,20 +83,24 @@ def flag_sets(flags: list[str], min_size: int,
     return out
 
 
-def estimate_walltime(unit: float, cycles: int, multi: int) -> int:
-    """unit_walltime * cycles * multi, floored at 60 s."""
-    return max(60, int(unit * cycles * max(1, multi)))
+def estimate_walltime(unit: float, cycles: int, multi: int,
+                      partitions: int = 1) -> int:
+    """unit_walltime * cycles * multi / sqrt(partitions), floored at 60 s
+    (mgcfd_tpu's heuristic)."""
+    return max(60, int(unit * cycles * max(1, multi)
+                       / max(1.0, partitions ** 0.5)))
 
 
 def job_name(dtype: str, acc: str, flags: tuple[str, ...], parts: int,
-             repeat: int) -> str:
+             repeat: int, shard_levels: int = 1) -> str:
     """mgcfd_tpu's job name for the same point."""
     f = ".".join(sorted(flags)) if flags else "noflags"
-    return f"{dtype}.{acc}.{f}.P{parts}.r{repeat}"
+    sl = f".S{shard_levels}" if shard_levels != 1 else ""
+    return f"{dtype}.{acc}.{f}.P{parts}{sl}.r{repeat}"
 
 
-def job_command(dtype: str, acc: str, flags, run: dict,
-                setup: dict) -> list[str]:
+def job_command(dtype: str, acc: str, flags, run: dict, setup: dict,
+                parts: int = 1, shard_levels: int = 1) -> list[str]:
     """The CLI call of one job, run from its directory."""
     cli = [sys.executable, "-m", "mgcfd_tpu_torch.cli.main"]
     if setup.get("synthetic"):
@@ -106,6 +112,10 @@ def job_command(dtype: str, acc: str, flags, run: dict,
     cli += ["-g", str(run["mg cycles"]), "-m", str(run["mesh multi"]),
             "-o", "./", "--dtype", dtype, *acc_flags,
             "--monitor", "instrumented", "-p", "events.conf"]
+    if parts > 1:
+        cli += ["--partitions", str(parts)]
+        if shard_levels != 1:
+            cli += ["--shard-levels", str(shard_levels)]
     if run.get("platform"):
         cli += ["--platform", run["platform"]]
     if run.get("validate"):
@@ -120,27 +130,30 @@ def generate_jobs(profile_path: str, repo_root: str | None = None) -> str:
         profile = json.load(f)
     cfg = _merged(profile)
     comp, run, setup = cfg["compile"], cfg["run"], cfg["setup"]
-    if any(p != 1 for p in run["partitions"]):
-        raise ValueError(
-            f"partitions {run['partitions']}: the sharded solver is not "
-            "ported yet (ROADMAP.md queue 1, item 9); give partitions [1]")
     repo_root = repo_root or os.getcwd()
     jobs_dir = os.path.abspath(setup["jobs dir"])
     os.makedirs(jobs_dir, exist_ok=True)
     events = run.get("events", DEFAULT_EVENTS)
 
     job_dirs = []
-    for dtype, acc in itertools.product(comp["dtypes"], comp["accumulate"]):
+    # the shard-levels axis means something only with parts > 1, so the
+    # single-device jobs take it once (mgcfd_tpu's pruning)
+    points = [(dtype, acc, parts, sl)
+              for dtype, acc, parts in itertools.product(
+                  comp["dtypes"], comp["accumulate"], run["partitions"])
+              for sl in (run.get("shard levels", [1]) if parts > 1
+                         else [1])]
+    for dtype, acc, parts, sl in points:
         for flags in flag_sets(comp["flux flags"],
                                comp["min flag set size"], acc):
             for repeat in range(run["num repeats"]):
-                name = job_name(dtype, acc, flags, 1, repeat)
+                name = job_name(dtype, acc, flags, parts, repeat, sl)
                 jdir = os.path.join(jobs_dir, name)
                 os.makedirs(jdir, exist_ok=True)
-                cli = job_command(dtype, acc, flags, run, setup)
+                cli = job_command(dtype, acc, flags, run, setup, parts, sl)
                 wall = estimate_walltime(run["unit walltime"],
                                          run["mg cycles"],
-                                         run["mesh multi"])
+                                         run["mesh multi"], parts)
                 script = f"""#!/bin/bash
 # generated by mgcfd_tpu_torch.bench.gen_job; walltime estimate: {wall}s
 set -u

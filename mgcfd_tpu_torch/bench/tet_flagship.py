@@ -6,10 +6,14 @@ reference's files.
     python -m mgcfd_tpu_torch.bench.tet_flagship --out DIR
 
 generates the hierarchy in the generator's (shuffled) node order, writes
-it into DIR (level<i>.dat, mg<i>.dat, input.dat), loads it back once
-through load_multigrid_mesh, which fills the .meshcache/ sidecars so that
-a later load takes well under a second, and prints one JSON line: the
-host seconds of generation, writing and parsing, and the level sizes.
+it into DIR (level<i>.dat, mg<i>.dat, input.dat), parses it back with
+load_multigrid_mesh(use_cache=False), which takes the native parser
+(native/; the Python reader where g++ is missing), then loads it once
+more through the .meshcache/ sidecars, which that load fills so that a
+later load takes well under a second, and prints one JSON line: the host
+seconds of generation, writing, the parse (no sidecar written) and the
+cache fill, which reader the parse went through ("reader": "native" when
+every level's did), and the level sizes.
 The RCM order is the reader's step, as the CLI's -i ... --renumber takes
 it: renumber_hierarchy(load_multigrid_mesh(DIR/input.dat)) gives the node
 order of bench.py's renumber_hierarchy(generated mesh). (Renumbering
@@ -25,6 +29,7 @@ import os
 import sys
 import time
 
+from ..mesh import io_dat
 from ..mesh.io_dat import load_multigrid_mesh, write_multigrid_mesh
 from ..mesh.unstructured import generate_unstructured_hierarchy
 
@@ -49,10 +54,17 @@ def main(argv=None) -> int:
     t1 = time.perf_counter()
     path = write_multigrid_mesh(args.out, mesh)
     t2 = time.perf_counter()
-    load_multigrid_mesh(path)
+    native = io_dat.READS["native"]
+    load_multigrid_mesh(path, use_cache=False)
     t3 = time.perf_counter()
+    parsed_natively = io_dat.READS["native"] - native
+    load_multigrid_mesh(path)
+    t4 = time.perf_counter()
     print(json.dumps({
         "generate_s": t1 - t0, "write_s": t2 - t1, "parse_s": t3 - t2,
+        "cache_fill_s": t4 - t3,
+        "reader": ("native" if parsed_natively == mesh.num_levels
+                   else "python"),
         "nodes": [lv.num_nodes for lv in mesh.levels],
         "internal_edges": [lv.num_internal_edges for lv in mesh.levels]}),
         flush=True)

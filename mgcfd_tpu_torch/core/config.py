@@ -1,11 +1,11 @@
 """Solver / run configuration: the field names of ``mgcfd_tpu``'s
 SolverConfig, so that a configuration reads the same in both packages.
 
-A field whose feature the port does not have must keep its default;
-``validate()`` raises NotImplementedError for any other value and names
-the ROADMAP item that brings the feature, or says that the field chooses
-a TPU formulation with no counterpart here. It refuses flux_fission where
-mgcfd_tpu refuses it, with the same ValueError.
+A field whose feature has no counterpart in the port must keep its
+default; ``validate()`` raises NotImplementedError for any other value and
+says why. It refuses flux_fission where mgcfd_tpu refuses it, with the
+same ValueError, and a sharding field it cannot use (num_partitions below
+1, shard_levels below 0) with a ValueError.
 """
 from __future__ import annotations
 
@@ -17,13 +17,6 @@ MONITOR_MODES = ("fused", "instrumented")
 # bfloat16 is a storage format: the kernels load bf16, compute in f32 and
 # round once on store; the plain paths run op by op in bf16, as XLA does
 DTYPES = ("float32", "float64", "bfloat16")
-
-# field -> ROADMAP item; the field must keep its default until then
-_NOT_PORTED = {
-    "num_partitions": "queue 1, item 9 (parallel/)",
-    "partition_2d": "queue 1, item 9 (parallel/)",
-    "shard_levels": "queue 1, item 9 (parallel/)",
-}
 
 # field -> why it has no counterpart; it must keep its default
 _NO_COUNTERPART = {
@@ -102,6 +95,8 @@ class SolverConfig:
     # port's plans (prep/plancache.py); "" = rebuild
     compile_cache_dir: str = ""
     check_invalid_every: int = 1      # host-side NaN-guard cadence (cycles)
+    # the sharded solver (parallel/): ranks, each owning one shard; an
+    # optional 2-D tiling ('PXxPY' or 'auto'); levels sharded (0 = auto)
     num_partitions: int = 1
     partition_2d: str = ""
     shard_levels: int = 1
@@ -120,12 +115,11 @@ class SolverConfig:
             raise NotImplementedError(
                 f"dtype={self.dtype!r} is not ported (the port runs "
                 f"{', '.join(DTYPES)})")
+        if self.num_partitions < 1 or self.shard_levels < 0:
+            raise ValueError(
+                f"num_partitions={self.num_partitions} (at least 1), "
+                f"shard_levels={self.shard_levels} (0 = auto, or more)")
         for f in dataclasses.fields(SolverConfig):
-            if f.name in _NOT_PORTED and \
-                    getattr(self, f.name) != f.default:
-                raise NotImplementedError(
-                    f"SolverConfig.{f.name} is not ported yet: ROADMAP.md "
-                    f"{_NOT_PORTED[f.name]}")
             if f.name in _NO_COUNTERPART and \
                     getattr(self, f.name) != f.default:
                 raise NotImplementedError(

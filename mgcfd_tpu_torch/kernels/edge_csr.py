@@ -13,6 +13,11 @@ Each role on the solver's path has its own wrapper instance with its own
 launch count (``launches``, a plain int added to at each kernel launch):
 ``flux``, ``rw``, ``restrict`` and ``prolong``.
 
+In flux and rw modes the neighbour space may be wider than the owner
+space, with the owners its first num_rows columns: the sharded solver's
+[block | separator pool] operand (parallel/sharded.py). The owners' values
+then come as a (5, num_rows) operand of their own (``own``).
+
 The state and weights are float32, float64 or bfloat16. bfloat16 is a
 storage format, as in the TPU kernel's bf16 branch
 (flux_window.py:254-296): the kernel and its plain version load bf16,
@@ -173,17 +178,20 @@ def flux_math(qo, qn, w0, w1, w2, wt):
     ])
 
 
-def edge_csr_plain(mode: str, csr: DeviceCSR, x: torch.Tensor):
+def edge_csr_plain(mode: str, csr: DeviceCSR, x: torch.Tensor,
+                   own: torch.Tensor | None = None):
     """What the kernel computes, as gathers plus one index_add_: per entry
-    h of row i with neighbour j,
+    h of row i with neighbour j (owner values from `own` when given, else
+    from x's first columns),
       flux  out[:, i] += flux_math(q_i, q_j, w[0:3, h], w[3, h])
       rw    out[:, i] += q_i + q_j + w0 + w1 + w2
       wsum  out[:, i] += w[0, h] * x[:, j],
     in compute_dtype(x.dtype), rounded once to x.dtype."""
-    return row_sums(mode, csr, x).to(x.dtype)
+    return row_sums(mode, csr, x, own).to(x.dtype)
 
 
-def row_sums(mode: str, csr: DeviceCSR, x: torch.Tensor):
+def row_sums(mode: str, csr: DeviceCSR, x: torch.Tensor,
+             own: torch.Tensor | None = None):
     """edge_csr_plain before its final rounding: in compute_dtype."""
     c = compute_dtype(x.dtype)
     x = x.to(c)
@@ -192,7 +200,7 @@ def row_sums(mode: str, csr: DeviceCSR, x: torch.Tensor):
     if mode == "wsum":
         vals = w[0] * xn
     else:
-        xo = x.index_select(1, csr.owner)
+        xo = (x if own is None else own.to(c)).index_select(1, csr.owner)
         if mode == "flux":
             vals = flux_math(complete8(xo), complete8(xn), w[0], w[1], w[2],
                              w[3])
@@ -203,7 +211,8 @@ def row_sums(mode: str, csr: DeviceCSR, x: torch.Tensor):
     return out.index_add_(1, csr.owner, vals)
 
 
-def check_operands(csr: DeviceCSR, x: torch.Tensor, mode: str) -> None:
+def check_operands(csr: DeviceCSR, x: torch.Tensor, mode: str,
+                   own: torch.Tensor | None = None) -> None:
     """Raise on what the kernel does not take."""
     if x.dtype not in STORAGE_DTYPES or x.dtype != csr.w.dtype:
         raise TypeError(f"edge_csr: dtype {x.dtype} with weights "
@@ -212,9 +221,18 @@ def check_operands(csr: DeviceCSR, x: torch.Tensor, mode: str) -> None:
     if tuple(x.shape) != (5, csr.num_cols) or not x.is_contiguous():
         raise ValueError(f"edge_csr: need a contiguous (5, {csr.num_cols}) "
                          f"state, got {tuple(x.shape)}")
-    if mode != "wsum" and csr.num_rows != csr.num_cols:
-        raise ValueError(f"edge_csr {mode}: owner and neighbour spaces "
-                         "must coincide")
+    if mode != "wsum" and csr.num_cols < csr.num_rows:
+        raise ValueError(f"edge_csr {mode}: the neighbour space must hold "
+                         "the owner space as its first columns")
+    wider = mode != "wsum" and csr.num_cols > csr.num_rows
+    if (own is None and wider) or (own is not None and (
+            not wider or own.dtype != x.dtype or own.device != x.device
+            or not own.is_contiguous()
+            or tuple(own.shape) != (5, csr.num_rows))):
+        raise ValueError(f"edge_csr {mode}: `own`, a contiguous "
+                         f"(5, {csr.num_rows}) operand like x, goes with a "
+                         "neighbour space wider than the owners', in flux "
+                         "or rw mode")
     if csr.w.shape[0] < _MIN_WEIGHT_ROWS[mode]:
         raise ValueError(f"edge_csr {mode}: needs {_MIN_WEIGHT_ROWS[mode]} "
                          f"weight rows, plan has {csr.w.shape[0]}")
@@ -232,13 +250,17 @@ class EdgeCSR:
         self.mode = mode
         self.launches = 0
 
-    def __call__(self, csr: DeviceCSR, x: torch.Tensor) -> torch.Tensor:
-        """(5, num_cols) -> (5, num_rows)."""
-        check_operands(csr, x, self.mode)
+    def __call__(self, csr: DeviceCSR, x: torch.Tensor,
+                 own: torch.Tensor | None = None) -> torch.Tensor:
+        """(5, num_cols) -> (5, num_rows). own: with a neighbour space
+        wider than the owners' (flux and rw modes), the owners' (5,
+        num_rows) values, equal to x[:, :num_rows]."""
+        check_operands(csr, x, self.mode, own)
         if not _on_card(x):
-            return edge_csr_plain(self.mode, csr, x)
+            return edge_csr_plain(self.mode, csr, x, own)
         out = torch.empty((5, csr.num_rows), dtype=x.dtype, device=x.device)
-        x_own = 0 if self.mode == "wsum" else x.data_ptr()
+        x_own = 0 if self.mode == "wsum" else \
+            (x if own is None else own).data_ptr()
         rc = build.library().mgcfd_edge_csr(
             build.dtype_code(x), MODES[self.mode],
             csr.row_ptr.data_ptr(), csr.col.data_ptr(), csr.w.data_ptr(),

@@ -66,6 +66,9 @@ class FusedStage:
     def __call__(self, csr: DeviceCSR, nc, q, old, fac):
         """q, old: (5, N); nc: (11, N); fac: (N,) = step factor /
         (RK + 1 - j). Returns (q_next, invalid count as a 0-d int32)."""
+        if csr.num_cols != csr.num_rows:
+            raise ValueError("fused_stage: owner and neighbour spaces "
+                             "must coincide")
         edge_csr.check_operands(csr, q, "flux")
         n = csr.num_rows
         for name, t, shape in (("old", old, (5, n)), ("nc", nc, (11, n)),

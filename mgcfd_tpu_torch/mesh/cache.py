@@ -53,9 +53,11 @@ def _try_load(cpath: str, src_mtime: float, mg_mtime: float,
 
 def load_mesh_cached(path: str, variant: MeshVariant,
                      need_coords: bool = True,
-                     mg_path: str | None = None) -> MeshLevel:
+                     mg_path: str | None = None,
+                     use_native: bool = True) -> MeshLevel:
     """One level (and its MG connectivity, when mg_path is given) through
-    the cache; parse and write the sidecar on a miss."""
+    the cache; parse (natively unless use_native is False) and write the
+    sidecar on a miss."""
     from .io_dat import read_grid_dat, read_mg_connectivity
 
     cpath = _cache_path(path)
@@ -64,12 +66,16 @@ def load_mesh_cached(path: str, variant: MeshVariant,
     lvl = _try_load(cpath, src_mtime, mg_mtime, variant, need_coords)
     if lvl is not None:
         return lvl
-    lvl = read_grid_dat(path, variant, need_coords=need_coords)
+    lvl = read_grid_dat(path, variant, need_coords=need_coords,
+                        use_native=use_native)
     if mg_path:
-        lvl.mg_mapping = read_mg_connectivity(mg_path)
+        lvl.mg_mapping = read_mg_connectivity(mg_path, use_native)
+    # the writer's own temporary file, renamed whole: the sharded
+    # solver's ranks may parse and store the same level at once
+    tmp = f"{cpath}.{os.getpid()}.tmp.npz"
     try:
         os.makedirs(os.path.dirname(cpath), exist_ok=True)
-        np.savez(cpath,
+        np.savez(tmp,
                  format=_FORMAT,
                  src_mtime=src_mtime, mg_mtime=mg_mtime,
                  variant=variant.value,
@@ -81,6 +87,10 @@ def load_mesh_cached(path: str, variant: MeshVariant,
                  wedge_b=lvl.wedge_b, wedge_w=lvl.wedge_w,
                  mg_mapping=lvl.mg_mapping if lvl.mg_mapping is not None
                  else np.zeros(0, dtype=np.int64))
+        os.replace(tmp, cpath)
     except OSError:
         pass
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return lvl

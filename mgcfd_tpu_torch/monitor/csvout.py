@@ -65,8 +65,9 @@ class CsvIdentification:
                              else "cpu"),
             simd="Y",
             simd_len="32" if cuda else "1",
-            openmp="Off",
-            num_threads=1,
+            # as mgcfd_tpu's: Num threads is the partition count
+            openmp="Strong" if config.num_partitions > 1 else "Off",
+            num_threads=config.num_partitions,
             omp_scatters="N",
             flux_fission="Y" if config.flux_fission else "N",
             cpu=str(device),

@@ -72,15 +72,17 @@ class KernelStats:
 
 class InstrumentedSolver:
     """Runs V-cycles one solver function at a time on a device (the card
-    unless device='cpu'): owns an MGCFDSolver for the mesh, plans and
-    state, and times each function of its cycle."""
+    unless device='cpu'): owns a solver of `solver_class` for the mesh,
+    plans and state, and times each function of its cycle."""
+
+    solver_class = MGCFDSolver
 
     def __init__(self, mesh: MultigridMesh,
                  config: SolverConfig | None = None, device=None):
         config = config or SolverConfig()
         # mgcfd_tpu's instrumented solver neither resumes nor writes
         # checkpoints (see above)
-        self._base = MGCFDSolver(mesh, dataclasses.replace(
+        self._base = self.solver_class(mesh, dataclasses.replace(
             config, resume=False, checkpoint_every=0), device)
         self.mesh = mesh
         self.config = self._base.config
@@ -127,12 +129,11 @@ class InstrumentedSolver:
         """One call of `function` on `level` inside `rng`, as wall seconds
         through completion: the device drained before, synchronised
         after."""
-        lvl = self.dmesh.levels[level]
+        lvl = self.mesh.levels[level]
         if function in _EDGE_FUNCTIONS:
-            iters = int(lvl.edge_a.shape[0])
+            iters = lvl.num_internal_edges
         elif function == "update":      # every edge's value, fission
-            iters = int(lvl.edge_a.shape[0] + lvl.bedge_b.shape[0]
-                        + lvl.wedge_b.shape[0])
+            iters = lvl.num_edges
         elif function in _NODE_FUNCTIONS:
             iters = lvl.num_nodes
         else:
@@ -160,10 +161,14 @@ class InstrumentedSolver:
         sz = torch.empty((), dtype=self._base.dtype).element_size()
         for function, level in self.stats.calls:
             nbytes, ops = costs.function_cost(
-                function, self.dmesh.levels, level, self.config.accumulate,
-                self.tstate, sz, self.config.flux_fission)
+                function, self.dmesh.levels, level,
+                *self._cost_path(level), sz, self.config.flux_fission)
             self.stats.cost_details.setdefault((function, level), {}).update(
                 model_bytes=nbytes, model_operations=ops)
+
+    def _cost_path(self, level: int):
+        """(accumulate, variable_major) of the cost model on `level`."""
+        return self.config.accumulate, self.tstate
 
     def run(self, cycles: int | None = None, verbose: bool = False,
             warmup: bool = True) -> KernelStats:

@@ -5,9 +5,11 @@
 A plan is stored as <cache_dir>/<kind>-<key>.npz, where the key hashes
 the format version and every array the plan is built from, so a changed
 mesh or weight builds a new file rather than reusing a stale one. The
-write goes to a .tmp.npz file that is then renamed, so a reader never
-sees half a file, and any failure to load one (a foreign, truncated or
-stale file) falls back to building the plan again.
+write goes to a temporary file of the writing process that is then
+renamed, so a reader never sees half a file and processes that build the
+same plan at once (the sharded solver's ranks) each rename a whole copy
+of their own; any failure to load one (a foreign, truncated or stale
+file) falls back to building the plan again.
 
 The port's plans are owner-sorted CSRs (prep/csr.py) and span plans
 (prep/shift.py), not mgcfd_tpu's TPU window plans: each package keeps
@@ -33,6 +35,12 @@ _TYPES = {"CSRPlan": CSRPlan, "ShiftPlan": ShiftPlan}
 STATS = {"loaded": {}, "built": {}}
 
 
+def register_type(cls) -> None:
+    """Let cached plans hold dataclasses of `cls` (the sharded solver's
+    partitions, parallel/partition.py, which registers its own)."""
+    _TYPES[cls.__name__] = cls
+
+
 def reset_stats() -> None:
     STATS["loaded"].clear()
     STATS["built"].clear()
@@ -50,8 +58,10 @@ def _content_key(arrays) -> str:
 
 
 def _pack(obj, pre: str = "") -> dict:
-    """A plan (a CSRPlan or ShiftPlan dataclass, a tuple or list of them
-    and arrays, ints) as flat npz entries, each node tagged by type."""
+    """A plan (a registered dataclass, a tuple or list of them and arrays,
+    ints, None) as flat npz entries, each node tagged by type."""
+    if obj is None:
+        return {pre + "type": np.asarray("none")}
     if dataclasses.is_dataclass(obj):
         out = {pre + "type": np.asarray(type(obj).__name__)}
         for f in dataclasses.fields(obj):
@@ -81,6 +91,8 @@ def _unpack(flat: dict, pre: str = ""):
         return items if kind == "list" else tuple(items)
     if kind == "int":
         return int(flat[pre + "value"])
+    if kind == "none":
+        return None
     if kind == "array":
         return flat[pre + "value"]
     raise ValueError(f"unknown plan entry type {kind!r}")
@@ -104,7 +116,9 @@ def cached_plan(cache_dir: str, kind: str, key_arrays, build):
             pass
     obj = build()
     STATS["built"][kind] = STATS["built"].get(kind, 0) + 1
-    tmp = path + ".tmp.npz"       # .npz suffix: savez must not append one
+    # the writer's own temporary file; the .npz suffix keeps savez from
+    # appending one
+    tmp = f"{path}.{os.getpid()}.tmp.npz"
     np.savez(tmp, **_pack(obj))
     os.replace(tmp, path)
     return obj

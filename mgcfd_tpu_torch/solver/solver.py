@@ -693,6 +693,10 @@ class MGCFDSolver:
                  config: SolverConfig | None = None, device=None):
         self.config = config or SolverConfig()
         self.config.validate()
+        if self.config.num_partitions > 1:
+            raise NotImplementedError(
+                f"MGCFDSolver runs on one device; num_partitions="
+                f"{self.config.num_partitions} is parallel.ShardedSolver's")
         self.device = resolve_device(device)
         self.mesh = mesh
         self.dmesh = prepare_device_mesh(mesh, self.config, self.device)
@@ -818,16 +822,23 @@ class MGCFDSolver:
             self.completed_cycles += 1
             if (ck_every and self.config.checkpoint_dir
                     and self.completed_cycles % ck_every == 0):
-                save_checkpoint(self.config.checkpoint_dir, self.mesh,
-                                self._state_node_major(),
-                                self.completed_cycles, self.rms_history)
+                self._save_checkpoint()
         return self.state
+
+    def _save_checkpoint(self) -> None:
+        save_checkpoint(self.config.checkpoint_dir, self.mesh,
+                        self._state_node_major(), self.completed_cycles,
+                        self.rms_history)
+
+    def _captures(self) -> bool:
+        """Whether run_batched captures its batches as CUDA graphs."""
+        return self.device.type == "cuda"
 
     def _batch(self, k: int):
         """K cycles; returns (rms (K,), invalid (K,)) on the device. On
         CUDA one replay of the cached graph of K cycles (captured at the
         first batch of this K); elsewhere the eager loop."""
-        if self.device.type != "cuda":
+        if not self._captures():
             out = [self.cycle() for _ in range(k)]
             return (torch.stack([r for r, _ in out]),
                     torch.stack([i for _, i in out]))

@@ -1,8 +1,8 @@
 """The port's sweep harness (bench/gen_job.py, bench/aggregate.py) against
 mgcfd_tpu's: jobs from mgcfd_tpu's profiles whose command lines the
-port's parser takes, the same job names as mgcfd_tpu's generator (its
-points with partitions > 1 left out: the port refuses such a profile),
-and aggregate over two tiny CPU jobs."""
+port's parser takes, the same job names as mgcfd_tpu's generator (the
+points with partitions > 1 included: the sharded solver's jobs), and
+aggregate over two tiny CPU jobs."""
 import json
 import os
 import shlex
@@ -31,11 +31,10 @@ def command_of(job_dir):
     return argv[argv.index("-m") + 2:]
 
 
-def single_device(profile: dict, jobs_dir) -> dict:
-    """The profile's single-device points, top-level '_doc' dropped (a
-    string there stops mgcfd_tpu's generator), written to jobs_dir."""
+def every_point(profile: dict, jobs_dir) -> dict:
+    """The profile with its top-level '_doc' dropped (a string there stops
+    mgcfd_tpu's generator), written to jobs_dir."""
     p = {k: dict(v) for k, v in profile.items() if isinstance(v, dict)}
-    p.setdefault("run", {})["partitions"] = [1]
     p.setdefault("setup", {})["jobs dir"] = str(jobs_dir)
     return p
 
@@ -43,17 +42,13 @@ def single_device(profile: dict, jobs_dir) -> dict:
 @pytest.mark.parametrize("profile", PROFILES, ids=lambda p: p.stem)
 def test_profiles_give_jax_job_names(profile, tmp_path, monkeypatch):
     """The port's generator on each of mgcfd_tpu's profiles: the same job
-    names as mgcfd_tpu's for the single-device points; every job's
-    command parses and validates in the port; no --dump-hlo or
-    --compile-cache. A profile with partitions > 1 is refused, naming
-    item 9."""
+    names as mgcfd_tpu's for every point; every job's command parses and
+    validates in the port, a partition count above 1 as --partitions P
+    (with its shard levels); no --dump-hlo or --compile-cache."""
     monkeypatch.chdir(tmp_path)
     raw = json.loads(profile.read_text())
-    if any(p != 1 for p in raw.get("run", {}).get("partitions", [1])):
-        with pytest.raises(ValueError, match="item 9"):
-            gen_job.generate_jobs(str(profile), str(REPO))
-    sd = single_device(raw, tmp_path / "mine")
-    ref = single_device(raw, tmp_path / "jax")
+    sd = every_point(raw, tmp_path / "mine")
+    ref = every_point(raw, tmp_path / "jax")
     for name, p in (("mine.json", sd), ("jax.json", ref)):
         (tmp_path / name).write_text(json.dumps(p))
     mine = gen_job.generate_jobs(str(tmp_path / "mine.json"), str(REPO))
@@ -62,7 +57,10 @@ def test_profiles_give_jax_job_names(profile, tmp_path, monkeypatch):
     for job in jobs_of(mine):
         argv = command_of(Path(mine) / job)
         assert "--dump-hlo" not in argv and "--compile-cache" not in argv
-        config_from_args(build_parser().parse_args(argv)).validate()
+        cfg = config_from_args(build_parser().parse_args(argv))
+        cfg.validate()
+        assert f".P{cfg.num_partitions}." in job
+        assert (f".S{cfg.shard_levels}." in job) == (cfg.shard_levels != 1)
         events = (Path(mine) / job / "events.conf").read_text().split()
         assert {"CALLS", "MODEL_BYTES", "MODEL_OPERATIONS"} <= set(events)
 

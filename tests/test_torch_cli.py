@@ -40,10 +40,13 @@ DUMP_FILES = ["variables", "step_factors", "volumes", "fluxes", "edge_p",
               "edge_mx", "edge_my", "edge_mz", "edge_pe"]
 
 # mgcfd_tpu's flags the port refuses, and the words that say why
-REFUSED = {"--partitions": "item 9", "--partition-2d": "item 9",
-           "--shard-levels": "item 9",
-           "--compile-cache": "no counterpart",
+REFUSED = {"--compile-cache": "no counterpart",
            "--dump-hlo": "no counterpart"}
+# the sharding flags (refused until the sharded solver was ported) and the
+# field each sets from VALUES
+SHARDING = {"--partitions": ("num_partitions", 2),
+            "--partition-2d": ("partition_2d", "2x2"),
+            "--shard-levels": ("shard_levels", 2)}
 # a value for each flag that takes one
 VALUES = {"-i": "input.dat", "-c": None, "-d": ".", "-o": "out/",
           "-m": "1", "-g": "1", "-p": "events.conf", "--dtype": "float64",
@@ -81,8 +84,8 @@ def test_the_parsers_have_the_same_flags():
 @pytest.mark.parametrize("flag,takes", jax_flags())
 def test_every_jax_flag_taken_or_refused(flag, takes, tmp_path, capsys):
     """Each flag of mgcfd_tpu's CLI sets the port's configuration without
-    error, or the CLI exits naming item 9 or saying that the flag has no
-    counterpart."""
+    error (the sharding flags their fields), or the CLI exits saying that
+    the flag has no counterpart."""
     conf = tmp_path / "run.conf"
     conf.write_text("cycles = 1\n")
     value = str(conf) if flag == "-c" else VALUES.get(flag)
@@ -95,6 +98,9 @@ def test_every_jax_flag_taken_or_refused(flag, takes, tmp_path, capsys):
         return
     cfg = config_from_args(build_parser().parse_args(argv))
     cfg.validate()
+    if flag in SHARDING:
+        field, value = SHARDING[flag]
+        assert getattr(cfg, field) == value
 
 
 def test_config_file_sets_the_same_fields(tmp_path):
@@ -116,12 +122,13 @@ def test_config_file_sets_the_same_fields(tmp_path):
     for f in ref.__dataclass_fields__:
         assert getattr(mine, f) == getattr(ref, f), f
     assert mine.input_file_directory == str(tmp_path / "sub/../data")
+    # the sharding keys run: partitions = 2 starts the CLI's two ranks
     for key in ("partitions", "shard_levels", "partition_2d"):
         c = tmp_path / f"{key}.conf"
-        c.write_text(f"{key} = {'2x2' if key == 'partition_2d' else 2}\n")
-        with pytest.raises(SystemExit):
-            cli_main(["-c", str(c), "--synthetic", "4,4,4,2",
-                      "--platform", "cpu"])
+        c.write_text(f"{key} = {'2x2' if key == 'partition_2d' else 2}\n"
+                     "cycles = 1\n")
+        assert cli_main(["-c", str(c), "--synthetic", "4,4,4,2",
+                         "--platform", "cpu"]) == 0
 
 
 def run_dumps(main, tet_dir, out, extra=()):

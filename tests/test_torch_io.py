@@ -355,7 +355,18 @@ def test_cli_without_input(capsys):
     assert "ERROR: input_file not set" in capsys.readouterr().out
 
 
-def test_cli_refuses_unported_flags(tet_files):
-    path, _ = tet_files
-    with pytest.raises(SystemExit):
-        cli_main(["-i", path, "--partitions", "2", "--platform", "cpu"])
+def test_cli_refuses_unported_flags(tet_files, tmp_path):
+    """--partitions, refused before the sharded solver was ported, reads
+    the input files in every rank it starts: its dump equals the single
+    device's within identify_differences."""
+    from mgcfd_tpu_torch.validate import identify_differences
+    path, pm = tet_files
+    argv = ["-i", path, "--platform", "cpu", "-g", "1", "--dtype",
+            "float64", "--output-variables"]
+    assert cli_main(argv + ["--partitions", "2", "-o",
+                            f"{tmp_path}/p2/"]) == 0
+    assert cli_main(argv + ["-o", f"{tmp_path}/p1/"]) == 0
+    name = "variables.size=1x.cycles=1.level=0"
+    assert identify_differences(np.loadtxt(tmp_path / "p2" / name),
+                                np.loadtxt(tmp_path / "p1" / name),
+                                pm.variant, raise_on_fail=False) == 0

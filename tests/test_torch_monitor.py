@@ -431,14 +431,30 @@ def test_cli_profile_dir(tet_files, tmp_path, capsys):
 
 @pytest.mark.parametrize("flag,why", [
     (["--dump-hlo", "x"], "no HLO to dump"),
-    (["--compile-cache", "x"], "compiles no XLA program"),
-    (["--shard-levels", "2"], "item 9"),
-    (["--partitions", "2"], "item 9"),
-    (["--partition-2d", "2x2"], "item 9")])
+    (["--compile-cache", "x"], "compiles no XLA program")])
 def test_cli_refusals(tet_files, capsys, flag, why):
     with pytest.raises(SystemExit):
         cli_main(["-i", tet_files, "--platform", "cpu", *flag])
     assert why in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag,parts", [
+    (["--shard-levels", "2"], 2), (["--partitions", "2"], 2),
+    (["--partition-2d", "2x2"], 4)])
+def test_cli_sharding_flags(tet_files, tmp_path, flag, parts):
+    """--shard-levels, --partitions and --partition-2d (refused until the
+    sharded solver was ported) under --monitor instrumented: the CLI's
+    ranks run the instrumented sharded solver, and rank 0 writes the
+    reports with Num threads = the partition count."""
+    out = tmp_path / "out"
+    argv = ["-i", tet_files, "--platform", "cpu", "-g", "1", "--monitor",
+            "instrumented", "-o", f"{out}/", *flag]
+    if "--partitions" not in flag:
+        argv += ["--partitions", str(parts)]
+    assert cli_main(argv) == 0
+    for name in ("Times.csv", "LoopNumIters.csv", csvout.COSTS_FILE):
+        rows = (out / name).read_text().splitlines()
+        assert rows[1].split(",")[12] == str(parts), name
 
 
 @pytest.mark.parametrize("field,value", [

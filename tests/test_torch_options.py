@@ -193,9 +193,15 @@ def test_fission_refused_as_jax_refuses_it(accumulate, transposed):
 
 @pytest.mark.parametrize("field,value", [
     ("num_partitions", 2), ("partition_2d", "2x2"), ("shard_levels", 2)])
-def test_sharding_fields_still_refused(field, value):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        SolverConfig(**{field: value}).validate()
+def test_sharding_fields_validate(field, value):
+    """The sharded solver's fields validate as in mgcfd_tpu (the solver is
+    held to mgcfd_tpu's in tests/test_torch_sharded*.py); a count it
+    cannot use is refused."""
+    SolverConfig(**{field: value}).validate()
+    JaxConfig(**{field: value}).validate()
+    if field != "partition_2d":
+        with pytest.raises(ValueError, match=field):
+            SolverConfig(**{field: -1}).validate()
 
 
 def _plans(s):

@@ -116,8 +116,9 @@ def test_nan_guard_raises(path):
 
 def test_accumulate_resolution_and_unported_options():
     """auto on the CPU is the plain path, and with flux_fission it is
-    'segment' on CUDA too; 'ell' and 'scatter' run; the sharding fields,
-    the TPU-only fields and an unknown dtype are refused; fission on the
+    'segment' on CUDA too; 'ell' and 'scatter' run; partitions (the
+    sharded solver's), the TPU-only fields and an unknown dtype are
+    refused; fission on the
     CSR kernels is refused as mgcfd_tpu refuses it."""
     from mgcfd_tpu_torch.solver.solver import resolve_accumulate
     mesh = mesh_from_arrays(jax_mg_box(4, 4, 4, 2))
@@ -139,9 +140,10 @@ def test_accumulate_resolution_and_unported_options():
 
 
 # every field the port once refused, at a value other than its default:
-# the sharding fields (item 9) and the TPU-only ones are still refused;
-# those of items 4 and 6 (the monitor's: tests/test_torch_monitor.py)
-# are ported and taken at any value
+# the TPU-only ones are still refused; those of items 4, 6 and 9 (the
+# monitor's: tests/test_torch_monitor.py; the sharding fields, which
+# MGCFDSolver leaves to ShardedSolver: tests/test_torch_sharded*.py) are
+# ported and taken at any value
 UNPORTED = {
     "validate_result": True, "output_variables": True,
     "output_fluxes": True, "output_step_factors": True,
@@ -153,8 +155,7 @@ UNPORTED = {
     "compile_cache_dir": "c", "num_partitions": 2, "partition_2d": "2x2",
     "shard_levels": 2,
 }
-STILL_REFUSED = ("window_tile_order", "compile_cache_dir", "num_partitions",
-                 "partition_2d", "shard_levels")
+STILL_REFUSED = ("window_tile_order", "compile_cache_dir")
 
 
 @pytest.mark.parametrize("field", list(UNPORTED))
