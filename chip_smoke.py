@@ -13,8 +13,9 @@ What it does, in order, printing each step with the elapsed seconds:
      cache, while the box phases run (bench/tet_flagship.py, into a
      temporary directory removed at the end);
   2. prints the card (torch and nvidia-smi);
-  3. builds the CUDA kernels with one nvcc call, and checks that each C
-     entry point refuses a dtype code it does not know;
+  3. builds the CUDA kernels (an nvcc process a source, all started
+     together, then one link), and checks that each C entry point
+     refuses a dtype code it does not know;
   4. holds every kernel against its plain PyTorch version on the card, in
      fp64, fp32 and bf16, printing the share of bit-equal elements:
      edge_csr in flux and rw modes at the box flagship's level-0 shapes,
@@ -22,11 +23,13 @@ What it does, in order, printing each step with the elapsed seconds:
      (with and without a spill operand) and fused_stage at every level's
      shapes, with the launch shapes of the span kernel (channel split,
      unrolled span loop), of the wsum transfers (channel split, loads)
-     and of edge_csr's rw mode (row, tile, lane groups) read from their C
-     entry points and held to the Python mirrors, rw mode at every level
-     of the box flagship and every rw shape at its level 0, each
-     bit-equal to the chosen one; the span kernels and the two tiled stage kernels also at
-     shapes that stress their tiling and launch shapes (the flagship's
+     and of edge_csr's rw mode (row, tile, lane groups) and flux mode
+     (row, tile) read from their C entry points and held to the Python
+     mirrors, rw mode at every level of the box flagship and every rw
+     shape at its level 0, each bit-equal to the chosen one, flux mode at
+     every level in every flux shape, each bit-equal to the chosen one
+     and to the row kernel; the span kernels and the two tiled stage
+     kernels also at shapes that stress their tiling and launch shapes (the flagship's
      plans cut to one span, a box whose two longer strides exceed the
      halo, a box whose node count is odd, the 32^3 tet's levels with
      16-span plans, and the tet's wsum transfers), the stage kernels
@@ -68,7 +71,8 @@ What it does, in order, printing each step with the elapsed seconds:
      then fp64 through `auto`
      ('window') against fp64 plain, and fp32 and bf16 through run_batched
      against run as in 8; edge_csr's rw mode at every level and every rw
-     shape at level 0, as on the box in 4, at fp64, fp32 and bf16;
+     shape at level 0, and its flux mode at every level in every flux
+     shape, as on the box in 4, at fp64, fp32 and bf16;
  13. the unfused window stage and the monitor (mgcfd_tpu_torch/monitor/):
      on the tet flagship, 'window' with fuse_window_stage=False at fp64,
      fp32 and bf16, edge_csr.flux over level 0's whole owner CSR held to
@@ -123,9 +127,10 @@ What it does, in order, printing each step with the elapsed seconds:
      single-device port with live separators and rank 0's launches a
      cycle as counted (correctness legs: they measure no collective of
      the card); edge_csr.flux over shard
-     0's level-0 CSR at P = 1, 2 and 4, RCM and shuffled, beside its
-     bound; and the CLI's --partitions 4 --partition-2d auto
-     --shard-levels 2 on the 32^3 tet's files in 4 gloo ranks on the
+     0's level-0 CSR at P = 1, 2 and 4, RCM and shuffled, with `own`, in
+     every flux shape (each bit-equal to the chosen one and to the row
+     kernel), each shape timed beside its bound; and the CLI's
+     --partitions 4 --partition-2d auto --shard-levels 2 on the 32^3 tet's files in 4 gloo ranks on the
      card, -v against the single-device CLI's fp64 dump;
  16. times each V-cycle (fp32 beside bf16) and each kernel at fp32, fp64
      and bf16 (each held to its plain version at the tolerance of 4
@@ -134,7 +139,8 @@ What it does, in order, printing each step with the elapsed seconds:
      in-place add, timed the same way); the tet flagship's level-0 kernels
      in its RCM order and in the generator's shuffled order, its level-0
      edge_csr.rw at bf16 and fp64 too, and its level-0 edge_csr.flux
-     (the unfused window stage's) at fp32, bf16 and fp64; and ms per
+     (the unfused window stage's) at fp32, bf16 and fp64, every flux
+     shape timed beside the chosen one; and ms per
      cycle through run_batched beside run, with device busy per cycle
      from torch.profiler, for the box ('pallas' fp32 and bf16, 'window'
      fp32) and the tet flagship ('window' fp32, RCM and shuffled); the
@@ -256,7 +262,8 @@ BATCH_K = 10
 # the kernel family of each hand-written kernel's symbol, as the profiler
 # names it (mgcfd::<symbol><...>), and of each launch counter
 SYMBOL_FAMILY = {"edge_csr_kernel": "edge_csr", "rw_tile_kernel": "edge_csr",
-                 "rw_group_kernel": "edge_csr", "wsum_row_kernel": "wsum",
+                 "rw_group_kernel": "edge_csr",
+                 "flux_tile_kernel": "edge_csr", "wsum_row_kernel": "wsum",
                  "wsum_split_kernel": "wsum",
                  "fused_stage_kernel": "fused_stage",
                  "shift_flux_kernel": "shift_flux",
@@ -462,6 +469,61 @@ def check_rw(solver, label: str) -> None:
                         f"{dt}: shape {name} differs from the chosen one")
                 cases.append((f"edge_csr.rw {label} L0 {name}", out, plain))
         check_cases(cases, dt)
+
+
+def check_flux_shapes(csr, x, own, what: str) -> None:
+    """edge_csr.flux over one CSR (own: the owners' values where the
+    neighbour space is wider): the shape the C entry point picks held to
+    the Python mirror (kernels/edge_csr.py flux_shape), every flux shape
+    (EdgeCSR.at) bit-equal to the chosen one and to the row kernel, and
+    each against the plain version (check_cases)."""
+    import torch
+    from mgcfd_tpu_torch.kernels import edge_csr
+    dt = x.dtype
+    got = edge_csr.flux.shape(csr)
+    want = edge_csr.flux_shape(csr.num_rows, csr.num_entries, dt)
+    require(got == want, f"edge_csr.flux {what} {dt}: the C entry point "
+            f"picks {got}, the mirror {want}")
+    log(f"flux shape {what} {TAGS[str(dt)]}: {csr.num_rows} rows, "
+        f"{csr.num_entries} entries: {edge_csr.FLUX_SHAPES[got]}")
+    plain = edge_csr.edge_csr_plain("flux", csr, x, own)
+    chosen = edge_csr.flux(csr, x, own)
+    outs = {s: edge_csr.flux.at(csr, x, s, own) for s in edge_csr.FLUX_SHAPES}
+    cases = [(f"edge_csr.flux {what}", chosen, plain)]
+    for shape, name in edge_csr.FLUX_SHAPES.items():
+        require(torch.equal(outs[shape], chosen)
+                and torch.equal(outs[shape], outs[edge_csr.FLUX_ROW]),
+                f"edge_csr.flux {what} {dt}: shape {name} differs from the "
+                "chosen one or the row kernel")
+        cases.append((f"edge_csr.flux {what} {name}", outs[shape], plain))
+    check_cases(cases, dt)
+
+
+def check_flux(solver, label: str) -> None:
+    """check_flux_shapes on every level's CSR of a 'window' solver."""
+    dt = solver.dtype
+    for lev, L in enumerate(solver.dmesh.levels):
+        q = random_state(L.num_nodes, 85 + lev, dt, L.volumes.device)
+        check_flux_shapes(L.csr, q, None, f"{label} L{lev}")
+
+
+def flux_shape_times(csr, x, own, bound_ms: float, what: str,
+                     card_label: str) -> dict:
+    """Device time of edge_csr.flux at every flux shape over one CSR,
+    beside the bound: {shape name: {"ms", "share"}}; the chosen one
+    marked in the log."""
+    from mgcfd_tpu_torch.kernels import edge_csr
+    chosen = edge_csr.flux.shape(csr)
+    out, parts = {}, []
+    for shape, name in edge_csr.FLUX_SHAPES.items():
+        ms = device_ms(lambda s=shape: edge_csr.flux.at(csr, x, s, own))
+        out[name] = {"ms": ms, "share": bound_ms / ms}
+        parts.append(f"{name}{'*' if shape == chosen else ''} "
+                     f"{ms * 1e3:.1f} us ({bound_ms / ms:.2f})")
+    log(f"flux shapes {what} {TAGS[str(x.dtype)]}: " + "; ".join(parts)
+        + f"; bound {bound_ms * 1e3:.1f} us (* = chosen; share of the "
+        f"bound) [{card_label}]")
+    return out
 
 
 def check_stage_shapes(mesh, tmesh, dtypes, dev) -> None:
@@ -899,6 +961,10 @@ def refuse_unknown_dtype(lib) -> None:
                                        1, None, 1, None),
         "mgcfd_rw_shape": lib.mgcfd_rw_shape(7, 1, 1,
                                              ctypes.addressof(shape)),
+        "mgcfd_flux_at": lib.mgcfd_flux_at(7, 0, None, None, None, 0, None,
+                                           None, 1, None, 1, None),
+        "mgcfd_flux_shape": lib.mgcfd_flux_shape(7, 1, 1,
+                                                 ctypes.addressof(shape)),
         "mgcfd_shift_fused_stage": lib.mgcfd_shift_fused_stage(
             7, ctypes.addressof(deltas), ctypes.addressof(kinds), 1, 8, 1,
             None, None, None, None, None, None, None, None, 1, None),
@@ -1574,7 +1640,8 @@ def variant_ms(solver, what: str, card_label: str) -> float:
 def flux_records(u, run, card_label: str):
     """The record of edge_csr.flux over level 0's whole owner CSR of an
     unfused 'window' solver on the tet flagship (name suffixed .tet),
-    timed as kernel_records times them; launches from its counted run."""
+    timed as kernel_records times them; launches from its counted run;
+    every flux shape's time and share under "shapes"."""
     from mgcfd_tpu_torch.kernels import edge_csr
     from mgcfd_tpu_torch.monitor.costs import edge_csr_cost
     W0 = u.dmesh.levels[0]
@@ -1583,8 +1650,12 @@ def flux_records(u, run, card_label: str):
              lambda: edge_csr.flux(W0.csr, q),
              lambda: edge_csr.edge_csr_plain("flux", W0.csr, q), None,
              *edge_csr_cost("flux", W0.csr, q.element_size()))]
-    return time_rows(rows, {"unfused": run}, u.dtype,
+    recs = time_rows(rows, {"unfused": run}, u.dtype,
                      launch_floor_ms(q.device), card_label, ".tet")
+    recs[0]["shapes"] = flux_shape_times(
+        W0.csr, q, None, recs[0]["bound_ms"], "tet flagship L0",
+        card_label)
+    return recs
 
 
 
@@ -1736,6 +1807,9 @@ def sharded_phase(solver, tr, ts, tf64, tet_input, secs, scratch,
         records = time_rows(rows, {"sharded": (counts, pc)}, s32.dtype,
                             launch_floor_ms(q.device), card_label,
                             ".sharded_tet")
+        records[0]["shapes"] = flux_shape_times(
+            csr0, comb, q, records[0]["bound_ms"], "sharded level 0 P=1",
+            card_label)
     finally:
         dist.destroy_process_group()
 
@@ -1790,18 +1864,30 @@ def sharded_phase(solver, tr, ts, tf64, tet_input, secs, scratch,
                                       dev, torch.float32)
             comb = random_state(csr.num_cols, 90 + P, torch.float32, dev)
             own = comb[:, :csr.num_rows].contiguous()
-            check_cases([(f"edge_csr.flux shard 0 of {P} ({label})",
-                          edge_csr.flux(csr, comb, own),
-                          edge_csr.edge_csr_plain("flux", csr, comb, own))],
-                        torch.float32)
+            what = f"shard 0 of {P} ({label})"
+            check_flux_shapes(csr, comb, own, what)
+            if label == "RCM" and P > 1:
+                # at bfloat16 too: a shard's CSR may hold an odd entry
+                # count (2,261,087 at P = 2), whose weight rows 1 and 3 the
+                # tile stages entry by entry (csr_tile.cuh stage_chunk)
+                bcsr = DeviceCSR.from_plan(
+                    partition.shard_flux_csr(lvl, sl, 0), dev, torch.bfloat16)
+                bcomb = comb.to(torch.bfloat16)
+                parity = "odd" if csr.num_entries % 2 else "even"
+                check_flux_shapes(bcsr, bcomb,
+                                  bcomb[:, :csr.num_rows].contiguous(),
+                                  f"{what}, {parity} entry count")
             nbytes, nops = edge_csr_cost("flux", csr, 4)
             bound = max(nbytes / HBM_BYTES_PER_S, nops / FP32_FLOP_PER_S)
-            us = device_ms(lambda: edge_csr.flux(csr, comb, own)) * 1e3
+            times = flux_shape_times(csr, comb, own, bound * 1e3, what,
+                                     card_label)
+            shape = edge_csr.FLUX_SHAPES[edge_csr.flux.shape(csr)]
+            us = times[shape]["ms"] * 1e3
             log(f"edge_csr.flux, tet flagship level 0 {label}, shard 0 of "
                 f"{P}: {csr.num_rows} rows, {sl.P * sl.smax} pool columns, "
-                f"{csr.num_entries} entries: {us:.1f} us a launch, bound "
-                f"{bound * 1e6:.1f} us (bytes {nbytes / 1e6:.1f} MB), share "
-                f"{bound * 1e6 / us:.2f} fp32 [{card_label}]")
+                f"{csr.num_entries} entries: {us:.1f} us a launch ({shape}),"
+                f" bound {bound * 1e6:.1f} us (bytes {nbytes / 1e6:.1f} MB), "
+                f"share {bound * 1e6 / us:.2f} fp32 [{card_label}]")
 
     # e. the CLI: --partitions 4 --partition-2d auto --shard-levels 2 on
     # the 32^3 tet's files in 4 gloo ranks on the card, -v against the
@@ -1942,7 +2028,8 @@ def smoke(tet_job, scratch: Path) -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     path, secs = build.build()
-    log(f"built {path.name} with one nvcc call in {secs:.1f} s")
+    log(f"built {path.name} with nvcc (a process a source, in parallel, "
+        f"then one link) in {secs:.1f} s")
     refuse_unknown_dtype(build.library())
 
     def solver(mesh, dtype, accumulate="auto", **kw):
@@ -1971,6 +2058,7 @@ def smoke(tet_job, scratch: Path) -> int:
     check_csr_kernels((w64, w32, w16))
     for w in (w64, w32, w16):
         check_rw(w, "box flagship")
+        check_flux(w, "box flagship")
     check_shift_kernels((m64, m32, m16))
     tmesh = generate_unstructured_hierarchy(32, 32, 32, 3, seed=0)
     check_stage_shapes(mesh, tmesh, (torch.float64, torch.float32,
@@ -2175,6 +2263,7 @@ def smoke(tet_job, scratch: Path) -> int:
                                       WANT_WINDOW)}
     for s_ in (tf64, tets32[".tet"], t16):
         check_rw(s_, "tet flagship")
+        check_flux(s_, "tet flagship")
 
     # --- the unfused window stage and the monitor ---
     unfused, runs_unfused = monitor_phase(

@@ -13,7 +13,8 @@ operands can be compared:
   - the two fused RK-stage kernels, shift.fused_stage and fused_stage, at
     level 0 (plan, nc, q, old, fac);
   - shift.rw and shift.flux (plan, q) at every level;
-  - edge_csr.rw (CSR, q) at every level, and the wsum transfers,
+  - edge_csr.rw and edge_csr.flux (CSR, q) at every level, and the wsum
+    transfers,
     edge_csr.restrict and edge_csr.prolong (CSR, x), at every level that
     has them, on the flagship and on two tets in RCM order (irregular
     rows): a 64^3 tet of 4 levels (suffix .tet64) and the tet flagship
@@ -36,14 +37,14 @@ What each process does, for fp32, bf16 and fp64:
      TB/s; and the launch floor, a one-element in-place add timed warm
      the same way;
   4. with --shapes, where its wrappers can launch at a given shape
-     (ShiftFlux.at, EdgeCSR.at), times shift.rw, shift.flux, edge_csr.rw
-     and the wsum transfers (the tets' too) at every shape their kernels
-     are built for, at every level, warm, and keeps each rw shape's
-     output.
+     (ShiftFlux.at, EdgeCSR.at), times shift.rw, shift.flux, edge_csr.rw,
+     edge_csr.flux and the wsum transfers (the tets' too) at every shape
+     their kernels are built for, at every level, warm, and keeps each rw
+     and flux shape's output.
 Then the main process prints each side's times and shares and whether
-the two trees' outputs are bit-equal (every rw shape's against the
-parent's rw kernel). Needs a CUDA device. Prints the card's name and
-power limit.
+the two trees' outputs are bit-equal (every rw and flux shape's against
+the parent's kernel in that mode). Needs a CUDA device. Prints the card's
+name and power limit.
 """
 from __future__ import annotations
 
@@ -204,24 +205,29 @@ def level_rows(levels, flux, state):
                          lambda m=mode, sh=sh, q=q: shift.shift_plain(m, sh,
                                                                       q),
                          sz * n * (5 + wrows * D + 5)))
-    return rows + rw_rows(flux, state) \
+    return rows + csr_rows(flux, state) \
         + wsum_rows(flagship_transfers(levels), state)
 
 
-def rw_rows(flux, state):
-    """edge_csr.rw on each (suffix, level, CSR): (name, level, kernel,
-    plain, bytes), the bytes chip_smoke.py counts (row_ptr, col, three
-    weight rows, the state read and the sums written)."""
+def csr_rows(flux, state):
+    """edge_csr.rw and edge_csr.flux on each (suffix, level, CSR): (name,
+    level, kernel, plain, bytes), the bytes chip_smoke.py counts (row_ptr,
+    col, three weight rows in rw mode and four in flux mode, the state read
+    and the sums written)."""
     from mgcfd_tpu_torch.kernels import edge_csr
     rows = []
     for suffix, lev, csr in flux:
         sz = csr.w.element_size()
         q = state(csr.num_cols, 31 + lev)
-        rows.append((f"edge_csr.rw{suffix}", lev,
-                     lambda c=csr, q=q: edge_csr.rw(c, q),
-                     lambda c=csr, q=q: edge_csr.edge_csr_plain("rw", c, q),
-                     4 * (csr.num_rows + 1) + (4 + 3 * sz) * csr.num_entries
-                     + sz * 10 * csr.num_rows))
+        for mode, kern, wrows in (("rw", edge_csr.rw, 3),
+                                  ("flux", edge_csr.flux, 4)):
+            rows.append((f"edge_csr.{mode}{suffix}", lev,
+                         lambda k=kern, c=csr, q=q: k(c, q),
+                         lambda m=mode, c=csr, q=q: edge_csr.edge_csr_plain(
+                             m, c, q),
+                         4 * (csr.num_rows + 1)
+                         + (4 + wrows * sz) * csr.num_entries
+                         + sz * 5 * (csr.num_cols + csr.num_rows)))
     return rows
 
 
@@ -341,9 +347,9 @@ def shape_sweep(label, tag, levels, flux, transfers, state, smi,
                 outputs, only: str = "") -> None:
     """shift.rw and shift.flux at every shape their kernel is built for
     (rw: with and without a thread per (node, channel); both: with and
-    without the span loop unrolled), edge_csr.rw at each of its shapes
-    (each output kept in outputs, to be held to the other tree's rw
-    kernel) and the wsum transfers with and without a thread per (row,
+    without the span loop unrolled), edge_csr.rw and edge_csr.flux at each
+    of their shapes (each output kept in outputs, to be held to the other
+    tree's kernel in that mode) and the wsum transfers with and without a thread per (row,
     channel), with plain, chunked and batched loads, at every level,
     warm; the shape each C entry point picks marked, and any output that
     differs from the chosen shape's flagged (flux mode's unrolled and
@@ -385,6 +391,13 @@ def shape_sweep(label, tag, levels, flux, transfers, state, smi,
               [(s,) for s in edge_csr.RW_SHAPES], (edge_csr.rw.shape(csr),),
               lambda s: edge_csr.RW_SHAPES[s[0]],
               keep=f"edge_csr.rw{suffix} L{lev}")
+        if hasattr(edge_csr, "FLUX_SHAPES"):
+            sweep(f"flux{suffix} L{lev} rows={csr.num_rows} "
+                  f"entries={csr.num_entries}", edge_csr.flux, (csr, q),
+                  [(s,) for s in edge_csr.FLUX_SHAPES],
+                  (edge_csr.flux.shape(csr),),
+                  lambda s: edge_csr.FLUX_SHAPES[s[0]],
+                  keep=f"edge_csr.flux{suffix} L{lev}")
     loads = {edge_csr.PLAIN: "plain", edge_csr.CHUNKED: "chunked",
              edge_csr.BATCHED: "batched"}
     for suffix, lev, rcsr, pcsr in transfers:
@@ -495,7 +508,8 @@ def run_side(args) -> int:
 # --- the main process: both trees in turns ----------------------------------
 
 def prebuild(tree: Path) -> str:
-    """Build a tree's kernels (one nvcc call) in a process of its own."""
+    """Build a tree's kernels (its build.build()) in a process of its
+    own."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "from mgcfd_tpu_torch.kernels import build; "
             "p, s = build.build(); print(f'{p.name} {s:.1f} s')")

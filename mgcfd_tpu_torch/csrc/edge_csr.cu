@@ -23,10 +23,20 @@
 // (304,640 rows, 748,008 entries) 14.1 MB, 4.2 us. chip_smoke.py
 // recomputes the bounds from each run's tensors.
 // What the design does about it:
-//   - flux mode: one thread per owner row; the 6 MB state stays in the 50
-//     MB L2, so the neighbour gathers hit the cache; weights and indices
-//     are streamed once. It reaches half its byte bound on the box at
-//     every dtype and is left as the first port wrote it.
+//   - flux mode: one thread per owner row (the row kernel); the 6 MB
+//     state stays in the 50 MB L2, so the neighbour gathers hit the
+//     cache; weights and indices are streamed once. It reaches 0.52-0.57
+//     of its byte bound at level 0 of the box (6 entries a row, warm L2)
+//     and 0.7 on its spill edges, and keeps the short rows. On the
+//     tet flagship's level 0 (15 entries a row, RCM; 104.6 MB at fp32,
+//     31.2 us) it took 273-286 us, for rw mode's reason below. The C
+//     entry point now chooses a shape per CSR (choose_flux;
+//     kernels/edge_csr.py flux_shape mirrors it, chip_smoke.py holds the
+//     mirror to mgcfd_flux_shape): long rows take the tile
+//     (flux_tile_kernel), fused_stage.cu's walk without its epilogue,
+//     79 us there at fp32 (share 0.40; NVIDIA H100 80GB HBM3 at 700 W),
+//     but the row kernel where it was as fast (levels of 16,384 to
+//     65,535 rows at fp32 and bf16).
 //   - rw mode: that row kernel too on the box's short rows (6 entries),
 //     at 0.7 of its byte bound at fp32. On the tet flagship's level 0 (15
 //     entries a row, RCM order; 86 MB at fp32, 25.8 us) it took 189-199
@@ -66,7 +76,7 @@
 // At bfloat16 (the bf16 branch, :254-296) the state and weights halve and
 // row_ptr and col do not: about 29 MB in flux mode. Each sum stays in
 // float32 until its one rounded store.
-#include "csr_common.cuh"
+#include "csr_tile.cuh"
 
 namespace mgcfd {
 
@@ -118,13 +128,6 @@ __device__ __forceinline__ C rw_value(C qi, C qj, C w0, C w1, C w2) {
   return qi + qj + w0 + w1 + w2;
 }
 
-// entries a tile stages per chunk: 20,480 bytes of values at fp32 and
-// bf16, 1024 entries (four a thread); 512 at fp64 (two a thread)
-template <typename C>
-__host__ __device__ constexpr int rw_chunk_entries() {
-  return 4096 / static_cast<int>(sizeof(C));
-}
-
 // kRwTile: a block owns kThreads consecutive rows, one a thread, and
 // walks their contiguous entries [row_ptr[r0], row_ptr[r0 + kThreads]) in
 // chunks of E. Per chunk: each row's thread marks its entries with its
@@ -143,7 +146,9 @@ __global__ void __launch_bounds__(kThreads)
                    S* __restrict__ out, int64_t n_rows) {
   using C = compute_t<S>;
   constexpr int B = kThreads;
-  constexpr int E = rw_chunk_entries<C>();
+  // entries a tile stages per chunk (csr_tile.cuh): 1024 at fp32 and
+  // bf16 (four a thread), 512 at fp64 (two a thread)
+  constexpr int E = chunk_entries<C>();
   constexpr int K = E / kThreads;
   __shared__ C sq[5 * B];            // the tile's own rows, channel-major
   __shared__ C sv[5 * E];            // the chunk's values, channel-major
@@ -323,6 +328,90 @@ int launch_rw(int64_t shape, const int* rp, const int* cl, const S* wt,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// flux mode on long rows. The row kernel (kFluxRow: edge_csr_kernel in
+// flux mode, csr_common.cuh flux_row) gives each row a thread that walks
+// its entries one after another: on the tet's ~15-entry rows a warp's
+// loads of col and of the four weight rows at step h touch 32 rows ~15
+// entries apart, a sector each, as rw mode's row kernel did. The tile
+// below is fused_stage.cu's walk without the stage's epilogue: it still
+// evaluates each entry's flux_math on the row kernel's values and adds
+// each row's values in CSR order from zero, so it gives the row kernel's
+// bits.
+
+// kFluxTile: a block of kThreads threads owns B = kTileRows = 128
+// consecutive rows, one each for its first B threads, completes them once
+// into a shared window from x_own, where the row kernel takes each owner,
+// and walks their entries as fused_stage_kernel does (csr_tile.cuh
+// tile_flux_sums); then each row's thread stores its sums. Tiles of 256
+// rows, a row a thread, were slower on every level of both tets at every
+// dtype (PERF.md section 6).
+template <typename S>
+__global__ void __launch_bounds__(kThreads, FusedMinBlocks<S>::value)
+    flux_tile_kernel(const int* __restrict__ row_ptr,
+                     const int* __restrict__ col, const S* __restrict__ w,
+                     int64_t n_half, const S* __restrict__ x_own,
+                     const S* __restrict__ x_nbr, int64_t n_nbr,
+                     S* __restrict__ out, int64_t n_rows, bool vec) {
+  using C = compute_t<S>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = threadIdx.x;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kTileRows;
+  const int64_t i = r0 + t;
+  C acc[5];
+  tile_flux_sums<S>(row_ptr, col, w, n_half, x_own, n_rows, x_nbr, n_nbr,
+                    r0, vec, smem, acc);
+  if (t < kTileRows && i < n_rows)
+    for (int c = 0; c < 5; ++c) out[c * n_rows + i] = to_storage<S>(acc[c]);
+}
+
+// the flux launch shapes: the row kernel and the tile
+enum FluxShape : int64_t { kFluxRow = 0, kFluxTile = 1 };
+// levels from kThinBelow up to kFluxMidLevel rows of long rows take the
+// row kernel at fp32 and bf16
+constexpr int64_t kFluxMidLevel = 65536;
+
+// the flux shape for n_rows rows of n_half entries at storage type S.
+// Long rows (kRwLongRow entries or more on average, the tet's) take the
+// tile, 3.5x faster than the row kernel at level 0 of the tet flagship
+// (NVIDIA H100 80GB HBM3 at 700 W) and faster on its thin levels too;
+// but on levels of kThinBelow to kFluxMidLevel rows (the tets' level 1:
+// 38,080 and 32,768 rows) the row kernel was as fast or faster at fp32
+// and bf16, and the tile faster from 76,160 rows (shard 0 of 4 of the tet
+// flagship's level 0). Short rows (the box's, and its spill edges) take
+// the row kernel, faster on every level. From sweeps of both shapes on the box flagship's levels, two
+// tets' and the sharded level 0's (bench/kernel_ab.py --shapes,
+// chip_smoke.py; PERF.md section 6).
+template <typename S>
+inline int64_t choose_flux(int64_t n_rows, int64_t n_half) {
+  if (n_half < kRwLongRow * n_rows) return kFluxRow;
+  const bool mid = n_rows >= kThinBelow && n_rows < kFluxMidLevel;
+  return mid && sizeof(S) != 8 ? kFluxRow : kFluxTile;
+}
+
+template <typename S>
+int launch_flux(int64_t shape, const int* rp, const int* cl, const S* wt,
+                int64_t n_half, const S* xo, const S* xn, int64_t n_nbr,
+                S* o, int64_t n_rows, cudaStream_t stream) {
+  switch (shape) {
+    case kFluxRow:
+      edge_csr_kernel<S, kFlux><<<blocks_for(n_rows), kThreads, 0, stream>>>(
+          rp, cl, wt, n_half, xo, xn, n_nbr, o, n_rows);
+      return static_cast<int>(cudaGetLastError());
+    case kFluxTile: {
+      constexpr size_t smem = tile_shared_bytes<S, kTileRows>();
+      static_assert(smem <= 48 * 1024, "more shared memory than a launch "
+                    "gets");
+      flux_tile_kernel<S>
+          <<<blocks_for(n_rows, kTileRows), kThreads, smem, stream>>>(
+              rp, cl, wt, n_half, xo, xn, n_nbr, o, n_rows,
+              rows_take_vectors<S>(xo, n_rows));
+      return static_cast<int>(cudaGetLastError());
+    }
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // a vector of NW 32-bit words: its load type, and its words
@@ -561,9 +650,8 @@ int launch(int64_t mode, const void* row_ptr, const void* col,
   auto* o = static_cast<S*>(out);
   switch (mode) {
     case kFlux:
-      edge_csr_kernel<S, kFlux><<<blocks_for(n_rows), kThreads, 0, stream>>>(
-          rp, cl, wt, n_half, xo, xn, n_nbr, o, n_rows);
-      break;
+      return launch_flux<S>(choose_flux<S>(n_rows, n_half), rp, cl, wt,
+                            n_half, xo, xn, n_nbr, o, n_rows, stream);
     case kRw:
       return launch_rw<S>(choose_rw<S>(n_rows, n_half), rp, cl, wt, n_half,
                           xo, xn, n_nbr, o, n_rows, stream);
@@ -663,6 +751,37 @@ extern "C" int mgcfd_rw_shape(int64_t dtype, int64_t n_rows, int64_t n_half,
                               int64_t* shape) {
   return mgcfd::dispatch_dtype(dtype, [&](auto tag) {
     shape[0] = mgcfd::choose_rw<decltype(tag)>(n_rows, n_half);
+    return 0;
+  });
+}
+
+// flux mode at a given shape (0 row, 1 tile); the other arguments as
+// mgcfd_edge_csr's. Only bench/kernel_ab.py --shapes and chip_smoke.py
+// call it, to time and check every shape of the library the solver loads.
+extern "C" int mgcfd_flux_at(int64_t dtype, int64_t shape,
+                             const void* row_ptr, const void* col,
+                             const void* w, int64_t n_half,
+                             const void* x_own, const void* x_nbr,
+                             int64_t n_nbr, void* out, int64_t n_rows,
+                             void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return mgcfd::dispatch_dtype(dtype, [&](auto tag) {
+    using S = decltype(tag);
+    if (n_rows == 0) return 0;
+    return mgcfd::launch_flux<S>(
+        shape, static_cast<const int*>(row_ptr), static_cast<const int*>(col),
+        static_cast<const S*>(w), n_half, static_cast<const S*>(x_own),
+        static_cast<const S*>(x_nbr), n_nbr, static_cast<S*>(out), n_rows,
+        s);
+  });
+}
+
+// the shape mgcfd_edge_csr launches flux mode at for n_rows rows and
+// n_half entries, into shape[0]; launches nothing
+extern "C" int mgcfd_flux_shape(int64_t dtype, int64_t n_rows,
+                                int64_t n_half, int64_t* shape) {
+  return mgcfd::dispatch_dtype(dtype, [&](auto tag) {
+    shape[0] = mgcfd::choose_flux<decltype(tag)>(n_rows, n_half);
     return 0;
   });
 }

@@ -48,7 +48,8 @@
 //     threads evaluate the flux values entry by entry, entry c0 + x by
 //     thread x mod kThreads, into shared memory; then each row's thread
 //     adds its entries in CSR order (the order of csr_common.cuh's
-//     flux_row).
+//     flux_row). This walk is csr_tile.cuh's tile_flux_sums, which
+//     edge_csr.cu's flux tile runs too.
 //     Fixed B with a loop over chunks, rather than tiles cut to an entry
 //     cap on the host: no per-plan table to build, upload and keep in step
 //     with the CSR, and a row of any length runs; a box tile's ~750
@@ -75,53 +76,9 @@
 // col is stored as bf16 and widened on load; the window, flux values, sums
 // and old + fac * flux are float32, rounded once on store and counted
 // before rounding.
-#include "window.cuh"
+#include "csr_tile.cuh"
 
 namespace mgcfd {
-
-constexpr int kTileRows = 128;
-
-// entries per chunk: 20,480 bytes of flux values. Half as many, with a
-// block more per SM, made level 0 of the box flagship faster at fp32 on
-// the H100 but its coarse levels, with fewer blocks than the card has
-// room for, slower by more.
-template <typename C>
-__host__ __device__ constexpr int chunk_entries() {
-  return 4096 / static_cast<int>(sizeof(C));
-}
-
-// weights of entry h of the chunk from c0 sit at sw[k * (E + 2) + h - c0 +
-// wshift(c0)]: bfloat16 weights are copied as 4-byte pairs from the even
-// entry at or below c0 (n_half is even, so no pair runs past the end)
-template <typename S>
-__device__ __forceinline__ int wshift(int c0) {
-  return sizeof(S) == 2 ? (c0 & 1) : 0;
-}
-
-// the chunk [c0, c1) of col and w into shared memory, asynchronously
-template <typename S>
-__device__ __forceinline__ void stage_chunk(int* __restrict__ scol,
-                                            S* __restrict__ sw,
-                                            const int* __restrict__ col,
-                                            const S* __restrict__ w,
-                                            int64_t n_half, int E, int c0,
-                                            int c1) {
-  const int t = threadIdx.x;
-  for (int h = c0 + t; h < c1; h += kThreads)
-    async_copy(scol + h - c0, col + h);
-  if constexpr (sizeof(S) == 2) {
-    using P = __nv_bfloat162;
-    const int p0 = c0 >> 1, p1 = (c1 + 1) >> 1;
-    for (int p = p0 + t; p < p1; p += kThreads)
-      for (int k = 0; k < 4; ++k)
-        async_copy(reinterpret_cast<P*>(sw + k * (E + 2)) + p - p0,
-                   reinterpret_cast<const P*>(w + k * n_half) + p);
-  } else {
-    for (int h = c0 + t; h < c1; h += kThreads)
-      for (int k = 0; k < 4; ++k)
-        async_copy(sw + k * (E + 2) + h - c0, w + k * n_half + h);
-  }
-}
 
 template <typename S>
 __global__ void __launch_bounds__(kThreads, FusedMinBlocks<S>::value)
@@ -132,56 +89,17 @@ __global__ void __launch_bounds__(kThreads, FusedMinBlocks<S>::value)
                        const S* __restrict__ nc, S* __restrict__ out,
                        int* __restrict__ invalid, int64_t n, bool vec) {
   using C = compute_t<S>;
-  constexpr int E = chunk_entries<C>();
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int W = kTileRows;
-  C* sq = reinterpret_cast<C*>(smem);   // (8, B) window: the tile's nodes
-  C* sf = sq + 8 * W;                   // (5, E) flux values
-  S* sw = reinterpret_cast<S*>(sf + 5 * E);        // (4, E + 2) weights
-  int* scol = reinterpret_cast<int*>(sw + 4 * (E + 2));  // (E) neighbours
-  unsigned char* srow = reinterpret_cast<unsigned char*>(scol + E);
   const int t = threadIdx.x;
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kTileRows;
   const int64_t i = r0 + t;
-  const bool own = t < kTileRows && i < n;
-  const int64_t r1 = r0 + kTileRows < n ? r0 + kTileRows : n;
-  const int e0 = row_ptr[r0], e1 = row_ptr[r1];
-  const int h0 = own ? row_ptr[i] : e1, h1 = own ? row_ptr[i + 1] : e1;
-  stage_chunk(scol, sw, col, w, n_half, E, e0, e0 + E < e1 ? e0 + E : e1);
-  complete_window<S>(q, n, r0, W, sq, W, 0, vec);
   C acc[5];
-  for (int c = 0; c < 5; ++c) acc[c] = C(0);
-  for (int c0 = e0; c0 < e1; c0 += E) {
-    const int c1 = c0 + E < e1 ? c0 + E : e1;
-    if (c0 > e0) stage_chunk(scol, sw, col, w, n_half, E, c0, c1);
-    const int a0 = h0 > c0 ? h0 : c0, a1 = h1 < c1 ? h1 : c1;
-    for (int h = a0; h < a1; ++h)
-      srow[h - c0] = static_cast<unsigned char>(t);
-    async_wait_all();
-    __syncthreads();  // the window, the chunk and its rows are written
-    for (int x = t; x < c1 - c0; x += kThreads) {
-      const int64_t j = scol[x];
-      const int64_t pj = j - r0;
-      const State8<C> qn =
-          pj >= 0 && pj < W ? get8(sq, W, static_cast<int>(pj))
-                            : complete8(q, n, j);
-      C v[5];
-      const S* wx = sw + x + wshift<S>(c0);
-      flux_math(get8(sq, W, srow[x]), qn, to_compute(wx[0]),
-                to_compute(wx[E + 2]), to_compute(wx[2 * (E + 2)]),
-                to_compute(wx[3 * (E + 2)]), v);
-      for (int c = 0; c < 5; ++c) sf[c * E + x] = v[c];
-    }
-    __syncthreads();  // the chunk's values are written
-    for (int h = a0; h < a1; ++h)
-      for (int c = 0; c < 5; ++c) acc[c] += sf[c * E + h - c0];
-    __syncthreads();  // the chunk's values, neighbours and rows are read
-  }
-  if (e0 == e1) __syncthreads();  // the window is written
+  tile_flux_sums<S>(row_ptr, col, w, n_half, q, n, q, n, r0, vec, smem, acc);
   int bad = 0;
-  if (own)
-    bad = update_node(get8(sq, W, t), acc, nc, old, fac,
-                      static_cast<const S*>(nullptr), n, i, out, n, i);
+  if (t < kTileRows && i < n)
+    bad = update_node(get8(reinterpret_cast<C*>(smem), kTileRows, t), acc,
+                      nc, old, fac, static_cast<const S*>(nullptr), n, i,
+                      out, n, i);
   add_block_count(bad, invalid);
 }
 
@@ -190,10 +108,7 @@ int launch_fused(const void* row_ptr, const void* col, const void* w,
                  int64_t n_half, const void* q, const void* old,
                  const void* fac, const void* nc, void* out, void* invalid,
                  int64_t n, cudaStream_t stream) {
-  using C = compute_t<S>;
-  constexpr int E = chunk_entries<C>();
-  constexpr size_t smem = sizeof(C) * (8 * kTileRows + 5 * E) +
-                          sizeof(S) * 4 * (E + 2) + sizeof(int) * E + E;
+  constexpr size_t smem = tile_shared_bytes<S, kTileRows>();
   static_assert(smem <= 48 * 1024, "more shared memory than a launch gets");
   const int64_t blocks = (n + kTileRows - 1) / kTileRows;
   fused_stage_kernel<S><<<static_cast<unsigned>(blocks), kThreads, smem,

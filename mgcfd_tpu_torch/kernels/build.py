@@ -1,7 +1,8 @@
-"""Build the CUDA kernels with one nvcc call and load them with ctypes.
+"""Build the CUDA kernels with nvcc and load them with ctypes.
 
-The sources under csrc/ have a plain C interface (no torch headers), so
-one ``nvcc -shared`` call builds them all into one library in seconds.
+The sources under csrc/ have a plain C interface (no torch headers): one
+nvcc process a source, all started together, compiles them in the time of
+the slowest, and one ``nvcc -shared`` links them into one library.
 The library lands in build/mgcfd_tpu_torch/ at the repository root, named
 by a hash of the sources and flags: a changed source builds anew, an
 unchanged one loads the existing file. The file is written under a
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor, as_completed
 from pathlib import Path
 
 import torch
@@ -42,6 +44,8 @@ _SIGNATURES = {
     "mgcfd_wsum_shape": [_I, _I, _I, _P],
     "mgcfd_rw_at": [_I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P],
     "mgcfd_rw_shape": [_I, _I, _I, _P],
+    "mgcfd_flux_at": [_I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P],
+    "mgcfd_flux_shape": [_I, _I, _I, _P],
     "mgcfd_shift_fused_stage": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _I, _P],
 }
@@ -73,27 +77,43 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmgcfd_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _nvcc_run(cmd: list[str], timeout: float) -> None:
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed with code {r.returncode}:\n"
+                           f"{' '.join(cmd)}\n{r.stderr}")
+
+
 def build() -> tuple[Path, float]:
-    """Compile csrc/*.cu unless the library for these sources exists.
+    """Compile csrc/*.cu unless the library for these sources exists: an
+    object a source, their nvcc processes started together, then one
+    link. The first compile to fail, in time, raises with its message.
     Returns (path, seconds spent in nvcc; 0.0 when nothing was built)."""
     out = library_path()
     if out.exists():
         return out, 0.0
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    stem = f"{out.stem}.{os.getpid()}"
+    tmp = out.with_name(f"{stem}.tmp.so")
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{stem}.{s.stem}.o" for s in srcs]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
     try:
-        r = subprocess.run(cmd, capture_output=True, text=True,
-                           timeout=NVCC_TIMEOUT_S)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {r.returncode}:\n"
-                               f"{' '.join(cmd)}\n{r.stderr}")
+        with ThreadPoolExecutor(len(srcs)) as pool:
+            for f in as_completed(
+                    pool.submit(_nvcc_run, [nvcc, *compile_flags, "-c", "-o",
+                                            str(o), str(s)], NVCC_TIMEOUT_S)
+                    for s, o in zip(srcs, objs)):
+                f.result()
+        _nvcc_run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)],
+                  NVCC_TIMEOUT_S)
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
+        for o in objs:
+            o.unlink(missing_ok=True)
     return out, time.perf_counter() - t0
 
 

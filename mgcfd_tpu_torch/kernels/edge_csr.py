@@ -5,8 +5,10 @@ Replaces mgcfd_tpu/pallas/flux_window.py::_window_kernel (flux, rw and
 wsum modes). In wsum mode the kernel gives each (row, channel) or each
 row a thread and loads a row's entries plain, chunked or batched; in rw
 mode it gives each row a thread, or takes a tile's entries or a row's
-with neighbouring lanes; the C entry point chooses the shape for the
-CSR, and wsum_shape and rw_shape below mirror that.
+with neighbouring lanes; in flux mode it gives each row a thread, or takes
+a tile's entries with the tile's rows completed once in shared memory; the
+C entry point chooses the shape for the CSR, and wsum_shape, rw_shape and
+flux_shape below mirror that.
 The wrapper launches the kernel for CUDA tensors and takes the plain
 version only for tensors on the CPU; anything else raises.
 Each role on the solver's path has its own wrapper instance with its own
@@ -56,6 +58,14 @@ RW_LONG_ROW = 10   # kRwLongRow
 # lane per pass)
 RW_TILE_ROWS = 256
 RW_GROUPS = {RW_GROUP8: (8, 1), RW_GROUP8X2: (8, 2)}
+# flux mode's shapes (csrc/edge_csr.cu FluxShape): a thread per row; a
+# block per tile of FLUX_TILE_ROWS rows (csrc/csr_tile.cuh kTileRows)
+FLUX_ROW, FLUX_TILE = range(2)
+FLUX_SHAPES = {FLUX_ROW: "row", FLUX_TILE: "tile"}
+FLUX_TILE_ROWS = 128
+# levels from THIN_BELOW up to FLUX_MID_LEVEL rows of long rows take the
+# row kernel at fp32 and bf16 (kFluxMidLevel)
+FLUX_MID_LEVEL = 65536
 _MIN_WEIGHT_ROWS = {"flux": 4, "rw": 3, "wsum": 1}
 
 
@@ -128,6 +138,17 @@ def rw_shape(num_rows: int, num_entries: int, dtype: torch.dtype) -> int:
     return RW_ROW
 
 
+def flux_shape(num_rows: int, num_entries: int, dtype: torch.dtype) -> int:
+    """The flux kernel's shape: rows of RW_LONG_ROW entries or more on
+    average (the tet's) take the tile, but a thread per row from
+    THIN_BELOW up to FLUX_MID_LEVEL rows at fp32 and bf16; shorter rows a
+    thread per row. The mirror of the C entry point's choose_flux."""
+    if num_entries < RW_LONG_ROW * num_rows:
+        return FLUX_ROW
+    mid = THIN_BELOW <= num_rows < FLUX_MID_LEVEL
+    return FLUX_ROW if mid and dtype != torch.float64 else FLUX_TILE
+
+
 def _on_card(t: torch.Tensor) -> bool:
     return t.is_cuda
 
@@ -141,8 +162,8 @@ def compute_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
-def rw_chunk_entries(dtype: torch.dtype) -> int:
-    """Entries a tile stages per chunk (csrc/edge_csr.cu rw_chunk_entries):
+def chunk_entries(dtype: torch.dtype) -> int:
+    """Entries a tile stages per chunk (csrc/csr_tile.cuh chunk_entries):
     4096 bytes over the compute type's size."""
     return 4096 // compute_dtype(dtype).itemsize
 
@@ -271,15 +292,14 @@ class EdgeCSR:
         self.launches += 1
         return out
 
-    def at(self, csr: DeviceCSR, x: torch.Tensor, shape):
-        """wsum mode at a WsumShape, or rw mode at an rw shape (RW_ROW,
-        ...), for timing and checking shapes."""
-        if self.mode not in ("wsum", "rw"):
-            raise ValueError(f"{self.name}: shapes are for wsum and rw "
-                             "modes")
-        check_operands(csr, x, self.mode)
+    def at(self, csr: DeviceCSR, x: torch.Tensor, shape,
+           own: torch.Tensor | None = None):
+        """wsum mode at a WsumShape, rw mode at an rw shape (RW_ROW, ...)
+        or flux mode at a flux shape (FLUX_ROW, ...), for timing and
+        checking shapes; own as in __call__."""
+        check_operands(csr, x, self.mode, own)
         if not _on_card(x):
-            return edge_csr_plain(self.mode, csr, x)
+            return edge_csr_plain(self.mode, csr, x, own)
         out = torch.empty((5, csr.num_rows), dtype=x.dtype, device=x.device)
         lib, stream = build.library(), \
             torch.cuda.current_stream(x.device).cuda_stream
@@ -290,28 +310,26 @@ class EdgeCSR:
                 csr.num_entries, x.data_ptr(), csr.num_cols, out.data_ptr(),
                 csr.num_rows, stream)
         else:
-            rc = lib.mgcfd_rw_at(
-                build.dtype_code(x), shape, csr.row_ptr.data_ptr(),
-                csr.col.data_ptr(), csr.w.data_ptr(), csr.num_entries,
-                x.data_ptr(), x.data_ptr(), csr.num_cols, out.data_ptr(),
-                csr.num_rows, stream)
+            fn = lib.mgcfd_rw_at if self.mode == "rw" else lib.mgcfd_flux_at
+            rc = fn(build.dtype_code(x), shape, csr.row_ptr.data_ptr(),
+                    csr.col.data_ptr(), csr.w.data_ptr(), csr.num_entries,
+                    (x if own is None else own).data_ptr(), x.data_ptr(),
+                    csr.num_cols, out.data_ptr(), csr.num_rows, stream)
         build.check(rc, self.name)
         self.launches += 1
         return out
 
     def shape(self, csr: DeviceCSR):
         """The shape the C entry point picks for this CSR: a WsumShape in
-        wsum mode, an rw shape in rw mode; launches nothing."""
-        if self.mode not in ("wsum", "rw"):
-            raise ValueError(f"{self.name}: shapes are for wsum and rw "
-                             "modes")
+        wsum mode, an rw or flux shape in those modes; launches nothing."""
         got = (ctypes.c_int64 * 2)()
-        fn = build.library().mgcfd_wsum_shape if self.mode == "wsum" \
-            else build.library().mgcfd_rw_shape
+        fn = {"wsum": build.library().mgcfd_wsum_shape,
+              "rw": build.library().mgcfd_rw_shape,
+              "flux": build.library().mgcfd_flux_shape}[self.mode]
         rc = fn(build.DTYPE_CODES[csr.w.dtype], csr.num_rows,
                 csr.num_entries, ctypes.addressof(got))
         build.check(rc, self.name)
-        if self.mode == "rw":
+        if self.mode != "wsum":
             return int(got[0])
         return WsumShape(split=bool(got[0]), loads=int(got[1]))
 

@@ -27,7 +27,7 @@ from mgcfd_tpu_torch.kernels.edge_csr import (FULL_LEVEL, RW_GROUP8,
                                               RW_LONG_ROW, RW_ROW,
                                               RW_SHAPES, RW_TILE,
                                               RW_TILE_ROWS, THIN_BELOW,
-                                              rw_chunk_entries, rw_shape)
+                                              chunk_entries, rw_shape)
 from mgcfd_tpu_torch.mesh import generate_unstructured_hierarchy
 from mgcfd_tpu_torch.mesh.generate import generate_multigrid_box
 from mgcfd_tpu_torch.prep.csr import build_edge_csr, build_flux_csr
@@ -156,7 +156,7 @@ def test_tile_chunks_at_the_kernel_constants():
     rp = _row_ptr(lengths)
     for dtype in (torch.float32, torch.float64):
         order, owner = tile_order(rp, len(lengths), RW_TILE_ROWS,
-                                  rw_chunk_entries(dtype))
+                                  chunk_entries(dtype))
         for r in range(len(lengths)):
             assert order[r] == list(range(rp[r], rp[r + 1]))
             assert all(owner[h] == r for h in order[r])
@@ -228,7 +228,7 @@ def walk_rw(csr, x, shape):
     owner = csr.owner.tolist()
     if shape == RW_TILE:
         order, owner_of = tile_order(rp, n, RW_TILE_ROWS,
-                                     rw_chunk_entries(x.dtype))
+                                     chunk_entries(x.dtype))
         owner = [owner_of[h] for h in range(csr.num_entries)]
     elif shape in RW_GROUPS:
         order = group_order(rp, n, *RW_GROUPS[shape])
@@ -300,7 +300,7 @@ def test_rw_walk_equals_the_plain_version(csrs, which, dtype, shape):
     if which == "tet L0":
         assert rows.max() > 16                # longer than a group's pass
         tile = plan.row_ptr[RW_TILE_ROWS] - plan.row_ptr[0]
-        assert tile > rw_chunk_entries(dtype)  # rows cross chunks
+        assert tile > chunk_entries(dtype)  # rows cross chunks
     if which == "tet L0 sparse":
         assert rows[:RW_TILE_ROWS].sum() == 0  # an empty tile
     x = _state(csr.num_cols, 2, dtype)
