@@ -1465,7 +1465,7 @@ def options_phase(solver, box, m32, p64, tr, tf64, t32, tet_input, scratch,
     import torch
     from mgcfd_tpu_torch.cli.main import main as cli_main
     from mgcfd_tpu_torch.monitor import opstats
-    from mgcfd_tpu_torch.prep import plancache
+    from mgcfd_tpu_torch.utils import spans
     from mgcfd_tpu_torch.validate import capacity
     t0 = time.perf_counter()
     plans = str(scratch / "plans")
@@ -1539,22 +1539,21 @@ def options_phase(solver, box, m32, p64, tr, tf64, t32, tet_input, scratch,
     # d. checkpoints and resume, and the plan cache's second build
     ck = str(scratch / "checkpoints")
     t1 = time.perf_counter()
-    plancache.reset_stats()
+    spans.reset()
     first = solver(tr, "float32", "window", checkpoint_dir=ck,
                    checkpoint_every=1, plan_cache_dir=plans)
-    first_s, first_stats = time.perf_counter() - t1, \
-        {k: dict(v) for k, v in plancache.STATS.items()}
+    first_s, first_stats = time.perf_counter() - t1, spans.counters("plans.")
     first.run(2)
     t1 = time.perf_counter()
-    plancache.reset_stats()
+    spans.reset()
     resumed = solver(tr, "float32", "window", checkpoint_dir=ck,
                      resume=True, plan_cache_dir=plans)
     second_s = time.perf_counter() - t1
     want_plans = {"torch-flux": 4, "torch-restrict": 3, "torch-prolong": 3}
-    require(plancache.STATS["loaded"] == want_plans
-            and not plancache.STATS["built"],
+    require(spans.counters("plans.loaded.") == want_plans
+            and not spans.counters("plans.built."),
             f"the second build did not load every plan from the cache: "
-            f"{plancache.STATS}")
+            f"{spans.counters('plans.')}")
     p1, p2 = device_plans(first), device_plans(resumed)
     require(p1.keys() == p2.keys() and all(torch.equal(p1[k], p2[k])
                                            for k in p1),
@@ -1735,12 +1734,13 @@ def sharded_phase(solver, tr, ts, tf64, tet_input, secs, scratch,
     from mgcfd_tpu_torch.cli.main import main as cli_main
     from mgcfd_tpu_torch.core.config import SolverConfig
     from mgcfd_tpu_torch.kernels import DeviceCSR, edge_csr
-    from mgcfd_tpu_torch.mesh import io_dat, load_multigrid_mesh
+    from mgcfd_tpu_torch.mesh import load_multigrid_mesh
     from mgcfd_tpu_torch.monitor.costs import edge_csr_cost
     from mgcfd_tpu_torch.native import native_available
     from mgcfd_tpu_torch.parallel import ShardedSolver, comm, partition
     from mgcfd_tpu_torch.parallel.launch import run_ranks
     from mgcfd_tpu_torch.parallel.sharded import conditioned
+    from mgcfd_tpu_torch.utils import spans
     t0 = time.perf_counter()
     plans = str(scratch / "plans")
 
@@ -1753,13 +1753,14 @@ def sharded_phase(solver, tr, ts, tf64, tet_input, secs, scratch,
         f"{secs['parse_s']:.2f} s, no sidecar written (host, the child "
         f"process; PR 10's Python read: {PYTHON_READ_PR10_S} s) "
         f"[{card_label}]")
-    before = io_dat.READS["native"]
+    before = spans.counters().get("mesh.reads.native", 0)
     t1 = time.perf_counter()
     nat = load_multigrid_mesh(tet_input, use_cache=False, use_native=True)
     t2 = time.perf_counter()
     py = load_multigrid_mesh(tet_input, use_cache=False, use_native=False)
     t3 = time.perf_counter()
-    require(io_dat.READS["native"] - before == nat.num_levels,
+    require(spans.counters().get("mesh.reads.native", 0) - before
+            == nat.num_levels,
             "the 32^3 tet's levels did not all go through the native parser")
     same_arrays(nat, py, "32^3 tet: native parser against the Python reader")
     log(f"32^3 tet files: native parser {t2 - t1:.3f} s, Python reader "

@@ -44,8 +44,11 @@ def profile_cycles(fn, cycles: int):
         wall = (time.perf_counter() - t0) / cycles * 1e3
         time.sleep(SETTLE_S)
     events = prof.key_averages()
+    # the device records, not the device-side copies of the host's
+    # ranges (run_batched's spans under a profile)
     kernels = [e for e in events if e.self_device_time_total > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA]
+               and e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in kernels) / cycles / 1e3
     return wall, busy, kernels, events
 

@@ -330,6 +330,7 @@ def main(argv=None) -> int:
     else:
         from ..solver import MGCFDSolver as Solver
     solver = Solver(mesh, cfg, device=args.platform)
+    _log_setup()
     say = print if getattr(solver, "rank", 0) == 0 else _quiet
     say(f"mesh {mesh.name}: {mesh.levels[0].num_nodes} nodes, "
         f"{mesh.num_levels} levels; dtype={cfg.dtype} "
@@ -353,6 +354,16 @@ def main(argv=None) -> int:
         return 1
     _dumps(cfg, mesh, solver, say is print)
     return 0
+
+
+def _log_setup() -> None:
+    """Under MGCFD_LOG=1, the set-up's spans and the counters
+    (utils/spans.py) once set-up has ended."""
+    from ..utils import spans
+    from ..utils.logging import log, log_enabled
+    if log_enabled():
+        for line in spans.report():
+            log("set-up %s", line)
 
 
 def _quiet(*args, **kwargs) -> None:

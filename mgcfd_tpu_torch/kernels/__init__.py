@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels (sources in ../csrc) and their wrappers.
 
 WRAPPERS lists every kernel wrapper; each counts its own kernel launches
-so that a run can show which kernels it went through. The window path
+so that a run can show which kernels it went through (utils.spans's
+counters() reports them as launches.<wrapper>). The window path
 (accumulate='window') runs fused_stage, edge_csr.rw, edge_csr.restrict and
 edge_csr.prolong, or with fuse_window_stage=False edge_csr.flux over the
 whole owner CSR in place of fused_stage; the box path (accumulate='pallas') runs
@@ -9,6 +10,7 @@ shift.fused_stage (or shift.flux when the stage is unfused), shift.rw and
 the same restrict and prolong, plus edge_csr.flux and edge_csr.rw over
 the spill edges where its plan leaves any.
 """
+from ..utils import spans
 from . import edge_csr, fused_stage as _fused, shift
 from .edge_csr import DeviceCSR
 from .shift import DeviceShift
@@ -33,6 +35,9 @@ def add_launch_counts(counts: dict) -> None:
     wrappers (MGCFDSolver.run_batched)."""
     for w in WRAPPERS:
         w.launches += counts.get(w.name, 0)
+
+
+spans.source("launches", launch_counts)
 
 
 __all__ = ["DeviceCSR", "DeviceShift", "WRAPPERS", "reset_launch_counts",

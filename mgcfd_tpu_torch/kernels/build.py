@@ -8,6 +8,11 @@ by a hash of the sources and flags: a changed source builds anew, an
 unchanged one loads the existing file. The file is written under a
 temporary name and renamed into place, so concurrent builders never see a
 half-written library and no lock file is needed.
+
+The first library() of a process is the span mgcfd.library
+(utils/spans.py): the sources' hash, a build when there is no library
+for them (the child span mgcfd.library.build; the counter
+library.builds), and the load.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from concurrent.futures import ThreadPoolExecutor, as_completed
 from pathlib import Path
 
 import torch
+
+from ..utils import spans
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mgcfd_tpu_torch"
@@ -101,14 +108,16 @@ def build() -> tuple[Path, float]:
     compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
     try:
-        with ThreadPoolExecutor(len(srcs)) as pool:
+        with spans.span("mgcfd.library.build"), \
+                ThreadPoolExecutor(len(srcs)) as pool:
             for f in as_completed(
                     pool.submit(_nvcc_run, [nvcc, *compile_flags, "-c", "-o",
                                             str(o), str(s)], NVCC_TIMEOUT_S)
                     for s, o in zip(srcs, objs)):
                 f.result()
-        _nvcc_run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)],
-                  NVCC_TIMEOUT_S)
+            _nvcc_run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)],
+                      NVCC_TIMEOUT_S)
+        spans.count("library.builds")
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
@@ -121,11 +130,12 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first use in this process)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()[0]))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        with spans.span("mgcfd.library"):
+            lib = ctypes.CDLL(str(build()[0]))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 

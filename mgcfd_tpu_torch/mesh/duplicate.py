@@ -2,12 +2,14 @@
 89-201): m disjoint copies of every level, node ids shifted per copy,
 each edge class keeping all copies of it together, and the MG mapping
 shifted by the coarser level's node count per copy. A problem-size
-multiplier, as in mgcfd_tpu.mesh.duplicate."""
+multiplier, as in mgcfd_tpu.mesh.duplicate. A duplication is the span
+mgcfd.duplicate (utils/spans.py)."""
 from __future__ import annotations
 
 import numpy as np
 
 from ..core.types import MeshLevel, MultigridMesh
+from ..utils import spans
 
 
 def _dup_level(lvl: MeshLevel, m: int, nel_above: int) -> MeshLevel:
@@ -41,11 +43,12 @@ def _dup_level(lvl: MeshLevel, m: int, nel_above: int) -> MeshLevel:
 def duplicate_mesh(mesh: MultigridMesh, m: int) -> MultigridMesh:
     if m <= 1:
         return mesh
-    new_levels = []
-    for i, lvl in enumerate(mesh.levels):
-        nel_above = (mesh.levels[i + 1].num_nodes
-                     if i + 1 < mesh.num_levels else 0)
-        new_levels.append(_dup_level(lvl, m, nel_above))
+    with spans.span("mgcfd.duplicate"):
+        new_levels = []
+        for i, lvl in enumerate(mesh.levels):
+            nel_above = (mesh.levels[i + 1].num_nodes
+                         if i + 1 < mesh.num_levels else 0)
+            new_levels.append(_dup_level(lvl, m, nel_above))
     return MultigridMesh(levels=new_levels, variant=mesh.variant,
                          problem_size=mesh.problem_size * m,
                          name=mesh.name)

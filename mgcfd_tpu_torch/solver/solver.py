@@ -86,6 +86,7 @@ from ..prep.incidence import DeviceIncidence, build_incidence, \
     ell_accumulate
 from ..prep.plancache import cached_plan
 from ..prep.shift import build_shift_plan, shift_flux
+from ..utils import spans
 from ..utils.checkpoint import latest_checkpoint, load_checkpoint, \
     save_checkpoint
 
@@ -182,6 +183,18 @@ def variable_major(config: SolverConfig) -> bool:
             or (config.accumulate == "shift" and config.transposed))
 
 
+def upload(make):
+    """make(), a host -> device copy and cast, inside an mgcfd.upload
+    span; the bytes of the tensors it returns (a tensor, or a dataclass
+    of them) are added to the upload.bytes counter."""
+    with spans.span("mgcfd.upload"):
+        out = make()
+    fields = [out] if isinstance(out, torch.Tensor) else vars(out).values()
+    spans.count("upload.bytes", sum(t.nbytes for t in fields
+                                    if isinstance(t, torch.Tensor)))
+    return out
+
+
 def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
                         device: torch.device) -> DeviceMesh:
     """Condition the edge weights per mesh variant (euler3d:333-352) on
@@ -191,11 +204,12 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
     as mgcfd_tpu casts it (torch rounds float64 -> bfloat16 through
     float32, as jnp.asarray and ml_dtypes do)."""
     dtype = DTYPES[config.dtype]
-    levels = [dataclasses.replace(lv, edge_w=lv.edge_w.copy(),
-                                  bedge_w=lv.bedge_w.copy(),
-                                  wedge_w=lv.wedge_w.copy())
-              for lv in mesh.levels]
-    apply_ewt_conditioning(levels, mesh.variant)
+    with spans.span("mgcfd.prepare.condition"):
+        levels = [dataclasses.replace(lv, edge_w=lv.edge_w.copy(),
+                                      bedge_w=lv.bedge_w.copy(),
+                                      wedge_w=lv.wedge_w.copy())
+                  for lv in mesh.levels]
+        apply_ewt_conditioning(levels, mesh.variant)
     # the plans' spans and spill edges do not depend on the weights, so
     # plans built on the conditioned levels decide `auto` too
     plans = resolve_accumulate(dataclasses.replace(mesh, levels=levels),
@@ -207,7 +221,8 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
     ff_flux = far_field_state(np.float64)[1]
 
     def put(x, dt=dtype):
-        return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dt)
+        return upload(lambda: torch.as_tensor(np.asarray(x)).to(
+            device=device, dtype=dt))
 
     dlevels = []
     for li, lv in enumerate(levels):
@@ -225,29 +240,32 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
         if config.flux_precompute_edge_weights:
             d.edge_ewt = put(np.sqrt((lv.edge_w ** 2).sum(axis=1)))
         if mode == "ell":
-            d.ell = DeviceIncidence.from_tables(build_incidence(lv), device,
-                                                dtype)
+            tables = build_incidence(lv)
+            d.ell = upload(lambda: DeviceIncidence.from_tables(
+                tables, device, dtype))
         if mode == "window":
-            d.csr = DeviceCSR.from_plan(cached_plan(
+            csr = cached_plan(
                 cache, "torch-flux", (lv.edge_a, lv.edge_b, lv.edge_w,
                                       np.asarray([lv.num_nodes])),
-                lambda lv=lv: build_flux_csr(lv)), device, dtype)
+                lambda lv=lv: build_flux_csr(lv))
+            d.csr = upload(lambda: DeviceCSR.from_plan(csr, device, dtype))
         if mode in ("pallas", "shift"):
             plan = plans[li]
-            d.shift = DeviceShift.from_plan(plan, lv.num_nodes, device,
-                                            dtype)
+            d.shift = upload(lambda: DeviceShift.from_plan(
+                plan, lv.num_nodes, device, dtype))
             if mode == "shift":
                 d.spill = (put(plan.spill_a, torch.int64),
                            put(plan.spill_b, torch.int64),
                            put(plan.spill_w))
             elif plan.spill_a.shape[0]:
-                d.spill_csr = DeviceCSR.from_plan(cached_plan(
+                spill = cached_plan(
                     cache, "torch-spill",
                     (plan.spill_a, plan.spill_b, plan.spill_w,
                      np.asarray([lv.num_nodes])),
                     lambda lv=lv, p=plan: build_edge_csr(
-                        lv.num_nodes, p.spill_a, p.spill_b, p.spill_w)),
-                    device, dtype)
+                        lv.num_nodes, p.spill_a, p.spill_b, p.spill_w))
+                d.spill_csr = upload(lambda: DeviceCSR.from_plan(
+                    spill, device, dtype))
         if variable_major(config):
             bdn, wln, wlc = tops.build_dense_boundary_wall(
                 lv.num_nodes, lv.bedge_b, lv.bedge_w, lv.wedge_b,
@@ -262,15 +280,16 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
                 cache, "torch-restrict", (fine.mg_mapping, sizes),
                 lambda f=fine, c=coarse: build_restrict_csr(
                     f.mg_mapping, f.num_nodes, c.num_nodes))
-            dlevels[i].restrict_csr = DeviceCSR.from_plan(plan, device,
-                                                          dtype)
-            dlevels[i].restrict_mapped = torch.as_tensor(mapped).to(device)
-            dlevels[i].prolong_csr = DeviceCSR.from_plan(cached_plan(
+            dlevels[i].restrict_csr = upload(lambda: DeviceCSR.from_plan(
+                plan, device, dtype))
+            dlevels[i].restrict_mapped = put(mapped, None)
+            prolong = cached_plan(
                 cache, "torch-prolong",
                 (fine.edge_a, fine.edge_b, fine.coords, coarse.coords,
                  fine.mg_mapping, sizes),
-                lambda f=fine, c=coarse: build_prolong_csr(f, c)),
-                device, dtype)
+                lambda f=fine, c=coarse: build_prolong_csr(f, c))
+            dlevels[i].prolong_csr = upload(lambda: DeviceCSR.from_plan(
+                prolong, device, dtype))
     return DeviceMesh(levels=dlevels, variant=mesh.variant,
                       ff_flux=put(ff_flux))
 
@@ -280,7 +299,6 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
 # ---------------------------------------------------------------------------
 
 _ranges_on = False
-_NO_RANGE = contextlib.nullcontext()
 # while timed_calls is on: (function, level, range) -> the context that
 # times the call (monitor/instrument.py's InstrumentedSolver)
 _timer = None
@@ -318,8 +336,8 @@ def kscope(function: str, level: int):
     """The range k_<function>_l<level> while measured_ranges is on, else
     a context that does nothing; inside timed_calls, wrapped in its
     timer."""
-    rng = (torch.profiler.record_function(f"k_{function}_l{level}")
-           if _ranges_on else _NO_RANGE)
+    rng = (spans.profiler_range(f"k_{function}_l{level}") if _ranges_on
+           else spans.OFF)
     return rng if _timer is None else _timer(function, level, rng)
 
 
@@ -619,8 +637,11 @@ class CycleGraph:
     cycles. It also leaves the K RMS values and invalid counts stacked on
     the device. ``launches`` holds the kernel launches one capture
     recorded; a replay calls no wrapper, so replay() adds them to the
-    counts."""
+    counts. The construction is the span mgcfd.capture: the warm-up
+    cycle, until the device has run it (mgcfd.capture.warmup), then the
+    capture (mgcfd.capture.graph)."""
 
+    @spans.span("mgcfd.capture")
     def __init__(self, solver: "MGCFDSolver", k: int):
         self.k = k
         st = solver.state
@@ -631,36 +652,40 @@ class CycleGraph:
             # warm-up on a clone of the state, on a side stream as torch's
             # capture recipe asks: the first launch of a kernel builds the
             # library and sets its attributes, which capture must not do
-            side = torch.cuda.Stream(solver.device)
-            side.wait_stream(torch.cuda.current_stream(solver.device))
-            with torch.cuda.stream(side):
-                solver.state = {"variables": [t.clone() for t in
-                                              self.variables],
-                                "residuals": [t.clone() for t in
-                                              self.residuals]}
-                solver.cycle()
-            torch.cuda.current_stream(solver.device).wait_stream(side)
+            with spans.span("mgcfd.capture.warmup"):
+                side = torch.cuda.Stream(solver.device)
+                side.wait_stream(torch.cuda.current_stream(solver.device))
+                with torch.cuda.stream(side):
+                    solver.state = {"variables": [t.clone() for t in
+                                                  self.variables],
+                                    "residuals": [t.clone() for t in
+                                                  self.residuals]}
+                    solver.cycle()
+                torch.cuda.current_stream(solver.device).wait_stream(side)
+                side.synchronize()
             kernels.reset_launch_counts()
-            self.graph = torch.cuda.CUDAGraph()
-            solver.state = {"variables": list(self.variables),
-                            "residuals": list(self.residuals)}
-            with torch.cuda.graph(self.graph):
-                rms, invalid = [], []
-                for _ in range(k):
-                    r, i = solver.cycle()
-                    rms.append(r)
-                    invalid.append(i)
-                for key, bufs in (("variables", self.variables),
-                                  ("residuals", self.residuals)):
-                    for buf, t in zip(bufs, solver.state[key]):
-                        buf.copy_(t)
-                self.rms = torch.stack(rms)
-                self.invalid = torch.stack(invalid)
+            with spans.span("mgcfd.capture.graph"):
+                self.graph = torch.cuda.CUDAGraph()
+                solver.state = {"variables": list(self.variables),
+                                "residuals": list(self.residuals)}
+                with torch.cuda.graph(self.graph):
+                    rms, invalid = [], []
+                    for _ in range(k):
+                        r, i = solver.cycle()
+                        rms.append(r)
+                        invalid.append(i)
+                    for key, bufs in (("variables", self.variables),
+                                      ("residuals", self.residuals)):
+                        for buf, t in zip(bufs, solver.state[key]):
+                            buf.copy_(t)
+                    self.rms = torch.stack(rms)
+                    self.invalid = torch.stack(invalid)
             self.launches = kernels.launch_counts()
         finally:
             solver.state = st
             kernels.reset_launch_counts()
             kernels.add_launch_counts(counts)
+        spans.count("graph.captures")
 
     def replay(self, solver: "MGCFDSolver"):
         """Advance the solver's state by K cycles; returns the stacked
@@ -687,8 +712,11 @@ class MGCFDSolver:
     """Owns the device mesh and state, runs V-cycles and performs the
     fail-fast invalid-state check between cycles (validation.cpp:107-138).
     The state is node-major at this interface: variables(level) is
-    (N, 5) whatever the internal layout."""
+    (N, 5) whatever the internal layout. The construction is the span
+    mgcfd.solver; on CUDA it first creates the device's context, in the
+    span mgcfd.context, so that no upload is charged for it."""
 
+    @spans.span("mgcfd.solver")
     def __init__(self, mesh: MultigridMesh,
                  config: SolverConfig | None = None, device=None):
         self.config = config or SolverConfig()
@@ -698,6 +726,9 @@ class MGCFDSolver:
                 f"MGCFDSolver runs on one device; num_partitions="
                 f"{self.config.num_partitions} is parallel.ShardedSolver's")
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            with spans.span("mgcfd.context"):
+                torch.cuda.synchronize(self.device)
         self.mesh = mesh
         self.dmesh = prepare_device_mesh(mesh, self.config, self.device)
         self.dtype = DTYPES[self.config.dtype]
@@ -722,7 +753,7 @@ class MGCFDSolver:
         def put(a):
             t = a if isinstance(a, torch.Tensor) else \
                 torch.as_tensor(np.asarray(a, np.float64))
-            t = t.to(device=self.device, dtype=self.dtype)
+            t = upload(lambda: t.to(device=self.device, dtype=self.dtype))
             return t.T.contiguous() if self._tstate else t
         return {"variables": [put(v) for v in variables],
                 "residuals": [put(r) for r in residuals]}
@@ -834,18 +865,21 @@ class MGCFDSolver:
         """Whether run_batched captures its batches as CUDA graphs."""
         return self.device.type == "cuda"
 
-    def _batch(self, k: int):
+    def _batch(self, k: int, traced: bool):
         """K cycles; returns (rms (K,), invalid (K,)) on the device. On
         CUDA one replay of the cached graph of K cycles (captured at the
-        first batch of this K); elsewhere the eager loop."""
-        if not self._captures():
+        first batch of this K, outside the span); elsewhere the eager
+        loop. traced: inside the span mgcfd.batch.replay."""
+        captures = self._captures()
+        if captures and (self._graph is None or self._graph.k != k):
+            self._graph = None     # free the old graph's pool first
+            self._graph = CycleGraph(self, k)
+        with spans.when(traced, "mgcfd.batch.replay"):
+            if captures:
+                return self._graph.replay(self)
             out = [self.cycle() for _ in range(k)]
             return (torch.stack([r for r, _ in out]),
                     torch.stack([i for _, i in out]))
-        if self._graph is None or self._graph.k != k:
-            self._graph = None     # free the old graph's pool first
-            self._graph = CycleGraph(self, k)
-        return self._graph.replay(self)
 
     def run_batched(self, cycles: int, cycles_per_dispatch: int = 10,
                     verbose: bool = False):
@@ -854,23 +888,28 @@ class MGCFDSolver:
         count of every cycle are kept on the device, the fail-fast check
         runs once per batch, and a tail shorter than K goes through run.
         It writes no checkpoint, as mgcfd_tpu's run_batched writes none
-        (the tail through run keeps run's cadence)."""
+        (the tail through run keeps run's cadence). While a profiler
+        records, each batch is the spans mgcfd.batch.replay and
+        mgcfd.batch.read (the host's read of the invalid counts and RMS
+        values); otherwise a batch records nothing."""
         k = max(1, min(cycles_per_dispatch, cycles))
         done = 0
         while done < cycles:
             if cycles - done < k:
                 self.run(cycles - done, verbose=verbose)
                 return self.state
-            rms, invalid = self._batch(k)
+            traced = spans.profiling()
+            rms, invalid = self._batch(k, traced)
             done += k
             self.completed_cycles += k
-            inv = int(invalid.sum())
-            if inv > 0:
-                raise FloatingPointError(
-                    f"invalid state detected within cycles "
-                    f"{done - k + 1}..{done}: {inv} bad entries")
-            self.rms_history.extend(
-                rms.to("cpu", torch.float64).tolist())
+            with spans.when(traced, "mgcfd.batch.read"):
+                inv = int(invalid.sum())
+                if inv > 0:
+                    raise FloatingPointError(
+                        f"invalid state detected within cycles "
+                        f"{done - k + 1}..{done}: {inv} bad entries")
+                self.rms_history.extend(
+                    rms.to("cpu", torch.float64).tolist())
             if verbose:
                 print(f"MG cycle {done} / {cycles} "
                       f"(RMS = {self.rms_history[-1]:.3e})", flush=True)

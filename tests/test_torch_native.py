@@ -15,12 +15,13 @@ from mgcfd_tpu.native import loader as jax_native
 from mgcfd_tpu_torch.core.constants import MeshVariant
 from mgcfd_tpu_torch.core.types import LEVEL_ARRAYS
 from mgcfd_tpu_torch.mesh import (MeshFormatError, generate_box_mesh,
-                                  generate_unstructured_hierarchy, io_dat,
+                                  generate_unstructured_hierarchy,
                                   load_multigrid_mesh, read_grid_dat,
                                   read_mg_connectivity, write_grid_dat,
                                   write_mg_connectivity,
                                   write_multigrid_mesh)
 from mgcfd_tpu_torch.native import loader
+from mgcfd_tpu_torch.utils import spans
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -56,11 +57,12 @@ def test_native_equals_python_reader(tmp_path, kind, variant):
     native parser on the same file."""
     path = str(tmp_path / "m.dat")
     write_grid_dat(path, level(kind), variant)
-    before = dict(io_dat.READS)
+    before = spans.counters("mesh.reads.")
     nat = read_grid_dat(path, variant, use_native=True)
     py = read_grid_dat(path, variant, use_native=False)
-    assert io_dat.READS["native"] == before["native"] + 1
-    assert io_dat.READS["python"] == before["python"] + 1
+    after = spans.counters("mesh.reads.")
+    assert after["native"] == before.get("native", 0) + 1
+    assert after["python"] == before.get("python", 0) + 1
     assert_bit_equal(nat, py)
     ref = jax_native.parse_dat_native(
         path, JaxVariant[variant.name].flips_all_normals, True)

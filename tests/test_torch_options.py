@@ -27,7 +27,7 @@ from mgcfd_tpu_torch.convert import mesh_from_arrays
 from mgcfd_tpu_torch.core.config import SolverConfig
 from mgcfd_tpu_torch.core.constants import MeshVariant, far_field_state
 from mgcfd_tpu_torch.ops import accumulate_flux, internal_edge_flux_crippled
-from mgcfd_tpu_torch.prep import plancache
+from mgcfd_tpu_torch.utils import spans
 from mgcfd_tpu_torch.prep.incidence import (DeviceIncidence, build_incidence,
                                             ell_accumulate)
 from mgcfd_tpu_torch.solver import MGCFDSolver
@@ -234,15 +234,15 @@ def test_plan_cache_round_trip(tmp_path, accumulate):
     (under kinds of the port's own); the second loads every one, and the
     uploaded plans equal those of a build without the cache."""
     cache = str(tmp_path / "plans")
-    plancache.reset_stats()
+    spans.reset()
     first = port("box", accumulate=accumulate, plan_cache_dir=cache)
-    built = dict(plancache.STATS["built"])
-    assert sum(built.values()) > 0 and not plancache.STATS["loaded"]
+    built = spans.counters("plans.built.")
+    assert sum(built.values()) > 0 and not spans.counters("plans.loaded.")
     assert all(k.startswith("torch-") for k in built)
-    plancache.reset_stats()
+    spans.reset()
     second = port("box", accumulate=accumulate, plan_cache_dir=cache)
-    assert plancache.STATS["loaded"] == built
-    assert not plancache.STATS["built"]
+    assert spans.counters("plans.loaded.") == built
+    assert not spans.counters("plans.built.")
     none = port("box", accumulate=accumulate)
     want = _plans(none)
     for s in (first, second):
@@ -259,9 +259,9 @@ def test_plan_cache_rebuilds_a_bad_file(tmp_path):
     files = sorted(cache.glob("torch-flux-*.npz"))
     assert files
     files[0].write_bytes(b"not an npz")
-    plancache.reset_stats()
+    spans.reset()
     s = port("tet", accumulate="window", plan_cache_dir=str(cache))
-    assert plancache.STATS["built"] == {"torch-flux": 1}
+    assert spans.counters("plans.built.") == {"torch-flux": 1}
     assert not list(cache.glob("*.tmp.npz"))
     ref = port("tet", accumulate="window")
     assert torch.equal(s.dmesh.levels[0].csr.col, ref.dmesh.levels[0].csr.col)

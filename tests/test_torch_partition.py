@@ -19,7 +19,7 @@ from mgcfd_tpu_torch.kernels import DeviceCSR, edge_csr
 from mgcfd_tpu_torch.kernels.fused_stage import fused_stage
 from mgcfd_tpu_torch.mesh import generate_multigrid_box
 from mgcfd_tpu_torch.parallel import partition as part
-from mgcfd_tpu_torch.prep import plancache
+from mgcfd_tpu_torch.utils import spans
 from mgcfd_tpu_torch.prep.csr import (build_flux_csr, build_prolong_csr,
                                       build_restrict_csr)
 
@@ -206,12 +206,12 @@ def test_partitions_through_the_plan_cache(tmp_path):
     """partition_mesh stores each sharded level in the plan cache and
     loads it back equal, None fields and span lists included."""
     mesh = generate_multigrid_box(10, 8, 8, 3, h=H)
-    plancache.reset_stats()
+    spans.reset()
     a = part.partition_mesh(mesh, 4, use_shift=True, shard_levels=2,
                             plan_cache_dir=str(tmp_path))
-    assert plancache.STATS["built"]["torch-partition-P4"] == 2
+    assert spans.counters("plans.built.")["torch-partition-P4"] == 2
     b = part.partition_mesh(mesh, 4, use_shift=True, shard_levels=2,
                             plan_cache_dir=str(tmp_path))
-    assert plancache.STATS["loaded"]["torch-partition-P4"] == 2
+    assert spans.counters("plans.loaded.")["torch-partition-P4"] == 2
     for x, y in zip(a.levels, b.levels):
         assert_levels_equal(x, y)
