@@ -34,7 +34,10 @@ What it does, in order, printing each step with the elapsed seconds:
      halo, a box whose node count is odd, the 32^3 tet's levels with
      16-span plans, and the tet's wsum transfers), the stage kernels
      launched twice (bit-equal) and with planted invalid values (counts
-     equal); at bf16 every element within one bf16 spacing;
+     equal); at bf16 every element within one bf16 spacing; and
+     step_factor at every level of the box flagship in both variants,
+     from a random state and with planted invalid values: bit-equal to
+     its plain version at fp64, fp32 and bf16;
   5. drives the main path, MGCFDSolver(...).run() on the box flagship
      (304,640 nodes, 4 levels) with accumulate='auto', which takes the
      span kernels ('pallas') there: fp64 through the kernels against fp64
@@ -47,7 +50,8 @@ What it does, in order, printing each step with the elapsed seconds:
      state, where every node moves by O(0.1) per cycle, through 'pallas'
      and 'window': fp64 kernels against fp64 plain, the fp32 kernel RMS
      against the fp64 RMS, and bf16 through the kernels and through the
-     plain path against fp64 (per channel and per-cycle RMS);
+     plain path against fp64 (per channel and per-cycle RMS); the legacy
+     step factor (FVCORR's) in one launch a visit, 6 a cycle;
   8. runs the box through run_batched(23, 10), two replays of a CUDA
      graph of 10 cycles and a tail of 3 through run, on 'pallas' at fp32
      and bf16 and on 'window' at fp32: every level's state bit-equal to
@@ -134,7 +138,8 @@ What it does, in order, printing each step with the elapsed seconds:
      card, -v against the single-device CLI's fp64 dump;
  16. times each V-cycle (fp32 beside bf16) and each kernel at fp32, fp64
      and bf16 (each held to its plain version at the tolerance of 4
-     first) beside its bound, its plain version, a library call where
+     first; step_factor bit-equal) beside its bound, its plain
+     version, a library call where
      one computes the same function, and the launch floor (a one-element
      in-place add, timed the same way); the tet flagship's level-0 kernels
      in its RCM order and in the generator's shuffled order, its level-0
@@ -180,11 +185,14 @@ _WINDOW = "mgcfd_tpu/pallas/flux_window.py"
 _SHIFT = "mgcfd_tpu/pallas/flux_shift.py"
 REPLACES = {"edge_csr": f"{_WINDOW}:222", "fused_stage": f"{_WINDOW}:359",
             "shift_flux": f"{_SHIFT}:152",
-            "shift_fused_stage": f"{_SHIFT}:380"}
+            "shift_fused_stage": f"{_SHIFT}:380",
+            # no Pallas kernel: jnp ops, which XLA fuses on the TPU
+            "step_factor": "eager ops (mgcfd_tpu/solver/solver.py:590)"}
 SOURCES = {"edge_csr": "mgcfd_tpu_torch/csrc/edge_csr.cu",
            "fused_stage": "mgcfd_tpu_torch/csrc/fused_stage.cu",
            "shift_flux": "mgcfd_tpu_torch/csrc/shift_flux.cu",
-           "shift_fused_stage": "mgcfd_tpu_torch/csrc/shift_fused_stage.cu"}
+           "shift_fused_stage": "mgcfd_tpu_torch/csrc/shift_fused_stage.cu",
+           "step_factor": "mgcfd_tpu_torch/csrc/step_factor.cu"}
 
 # each kernel's bytes and operations: mgcfd_tpu_torch/monitor/costs.py,
 # which the monitor's cost file reads too
@@ -230,14 +238,18 @@ STRESS_BOX = (6, 144, 200)
 # a box with an odd node count (47,565)
 ODD_BOX = (7, 45, 151)
 # launches per cycle of each path on the 4-level flagship: 6 visits of 3
-# RK stages, 3 restrictions and 3 prolongations
+# RK stages and of the step factor's 2 launches, 3 restrictions and 3
+# prolongations
 MG = {"edge_csr.wsum.restrict": 3, "edge_csr.wsum.prolong": 3}
-WANT_MAIN = {"shift.fused_stage": 18, "shift.rw": 18, **MG}
-WANT_WINDOW = {"fused_stage": 18, "edge_csr.rw": 18, **MG}
-WANT_UNFUSED = {"shift.flux": 18, "shift.rw": 18, **MG}
-WANT_WINDOW_UNFUSED = {"edge_csr.flux": 18, "edge_csr.rw": 18, **MG}
+WANT_MAIN = {"shift.fused_stage": 18, "shift.rw": 18, "step_factor": 12,
+             **MG}
+WANT_WINDOW = {"fused_stage": 18, "edge_csr.rw": 18, "step_factor": 12,
+               **MG}
+WANT_UNFUSED = {"shift.flux": 18, "shift.rw": 18, "step_factor": 12, **MG}
+WANT_WINDOW_UNFUSED = {"edge_csr.flux": 18, "edge_csr.rw": 18,
+                       "step_factor": 12, **MG}
 # mg_gather=False: the plain scatter transfers, no wsum launch
-WANT_NO_GATHER = {"fused_stage": 18, "edge_csr.rw": 18}
+WANT_NO_GATHER = {"fused_stage": 18, "edge_csr.rw": 18, "step_factor": 12}
 # the instrumented solver's functions and the launch counter of the kernel
 # each call launches once, by path
 INSTRUMENTED_COUNTERS = {
@@ -268,13 +280,17 @@ SYMBOL_FAMILY = {"edge_csr_kernel": "edge_csr", "rw_tile_kernel": "edge_csr",
                  "fused_stage_kernel": "fused_stage",
                  "shift_flux_kernel": "shift_flux",
                  "shift_rw_split_kernel": "shift_flux",
-                 "shift_fused_stage_kernel": "shift_fused_stage"}
+                 "shift_fused_stage_kernel": "shift_fused_stage",
+                 "step_min_kernel": "step_factor",
+                 "stage_factor_kernel": "step_factor",
+                 "legacy_step_kernel": "step_factor"}
 COUNTER_FAMILY = {"edge_csr.flux": "edge_csr", "edge_csr.rw": "edge_csr",
                   "edge_csr.wsum.restrict": "wsum",
                   "edge_csr.wsum.prolong": "wsum",
                   "fused_stage": "fused_stage", "shift.flux": "shift_flux",
                   "shift.rw": "shift_flux",
-                  "shift.fused_stage": "shift_fused_stage"}
+                  "shift.fused_stage": "shift_fused_stage",
+                  "step_factor": "step_factor"}
 
 
 def log(msg: str) -> None:
@@ -598,7 +614,7 @@ def check_csr_kernels(solvers) -> None:
     from mgcfd_tpu_torch.kernels import edge_csr
     from mgcfd_tpu_torch.kernels.fused_stage import (fused_stage,
                                                      fused_stage_plain)
-    from mgcfd_tpu_torch.solver.solver import t_step_factor
+    from mgcfd_tpu_torch.kernels.step_factor import step_factor_plain
     plain = edge_csr.edge_csr_plain
     for solver in solvers:
         dt = solver.dtype
@@ -607,7 +623,7 @@ def check_csr_kernels(solvers) -> None:
         dev = L0.volumes.device
         q = random_state(n0, 1, dt, dev)
         old = q + 1e-3 * random_state(n0, 2, dt, dev)
-        fac = t_step_factor(L0, q, False) / 3.0
+        fac = step_factor_plain(q, L0.volumes, L0.cbrt_volumes, False) / 3.0
         xf = random_state(n0, 3, dt, dev)
         rc = random_state(n1, 4, dt, dev) - random_state(n1, 5, dt, dev)
         k_out, k_inv = fused_stage(L0.csr, L0.nc, q, old, fac)
@@ -644,10 +660,51 @@ def check_csr_kernels(solvers) -> None:
                               rl, dt)], dt)
             ql = random_state(L.num_nodes, 40 + lev, dt, dev)
             oldl = ql + 1e-3 * random_state(L.num_nodes, 2, dt, dev)
-            facl = t_step_factor(L, ql, False) / 3.0
+            facl = step_factor_plain(ql, L.volumes, L.cbrt_volumes,
+                                     False) / 3.0
             hold_stage(f"fused_stage L{lev}", fused_stage,
                        fused_stage_plain,
                        lambda x: (L.csr, L.nc, x, oldl, facl), ql, dt)
+
+
+def same_bits(a, b) -> bool:
+    """Equal, with NaN at the same places."""
+    import torch
+    return torch.equal(a.isnan(), b.isnan()) and \
+        torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+def check_step_factor(solvers) -> None:
+    """step_factor against its plain version on every level of each
+    solver, in both variants, from a random state and with planted
+    invalid values (a NaN spoils every factor of the corrected variant):
+    bit-equal at every dtype, with 2 launches (1 legacy)."""
+    import torch
+    from mgcfd_tpu_torch import kernels
+    from mgcfd_tpu_torch.kernels.step_factor import (stage_factors_plain,
+                                                     step_factor)
+    for solver in solvers:
+        dt = solver.dtype
+        for lev, L in enumerate(solver.dmesh.levels):
+            q = random_state(L.num_nodes, 80 + lev, dt, L.volumes.device)
+            for legacy in (False, True):
+                name = f"step_factor L{lev}{' legacy' if legacy else ''}"
+                for label, x in (("", q), (" planted", planted(q))):
+                    before = kernels.launch_counts()["step_factor"]
+                    got = step_factor(x, L.volumes, L.cbrt_volumes, legacy,
+                                      L.step)
+                    launched = kernels.launch_counts()["step_factor"] - before
+                    want = stage_factors_plain(x, L.volumes, L.cbrt_volumes,
+                                               legacy)
+                    torch.cuda.synchronize()
+                    require(launched == (1 if legacy else 2),
+                            f"{name}{label} {dt}: {launched} launches")
+                    require(same_bits(got, want), f"{name}{label} {dt}: "
+                            "the kernel's factors differ from the plain "
+                            f"version's at {int((got != want).sum())} of "
+                            f"{got.numel()}")
+                log(f"check {name:30s} {str(dt):14s} {L.num_nodes} nodes: "
+                    "bit-equal, and with a planted NaN, rho<0 and E<0")
 
 
 def check_shift_kernels(solvers) -> None:
@@ -656,7 +713,7 @@ def check_shift_kernels(solvers) -> None:
     256-node tile, spans up to 1120 reach across tiles), for each
     solver's dtype; the fused stage also launched twice (bit-equal)."""
     from mgcfd_tpu_torch.kernels import shift
-    from mgcfd_tpu_torch.solver.solver import t_step_factor
+    from mgcfd_tpu_torch.kernels.step_factor import step_factor_plain
     for solver in solvers:
         dt = solver.dtype
         for lev in range(len(solver.dmesh.levels)):
@@ -664,7 +721,7 @@ def check_shift_kernels(solvers) -> None:
             sh, n, dev = L.shift, L.num_nodes, L.volumes.device
             q = random_state(n, 11 + lev, dt, dev)
             old = q + 1e-3 * random_state(n, 13, dt, dev)
-            fac = t_step_factor(L, q, False) / 3.0
+            fac = step_factor_plain(q, L.volumes, L.cbrt_volumes, False) / 3.0
             spill = 1e-3 * random_state(n, 14, dt, dev)
             k0, k0_inv = shift.fused_stage(sh, L.nc, q, old, fac)
             p0, p0_inv = shift.shift_fused_stage_plain(sh, L.nc, q, old,
@@ -968,6 +1025,8 @@ def refuse_unknown_dtype(lib) -> None:
         "mgcfd_shift_fused_stage": lib.mgcfd_shift_fused_stage(
             7, ctypes.addressof(deltas), ctypes.addressof(kinds), 1, 8, 1,
             None, None, None, None, None, None, None, None, 1, None),
+        "mgcfd_step_factor": lib.mgcfd_step_factor(
+            7, 0, None, None, None, None, 0, None, None, 1, None),
     }
     log(f"dtype code 7 refused: {rcs}")
     require(all(rc != 0 for rc in rcs.values()),
@@ -1198,8 +1257,11 @@ def kernel_records(s_main, s_win, spill_csr, runs, card_label: str):
     the flux and the stages have none (nonlinear in q)."""
     import torch
     from mgcfd_tpu_torch.kernels import edge_csr, shift
+    from mgcfd_tpu_torch.kernels.step_factor import (stage_factors_plain,
+                                                     step_factor)
     from mgcfd_tpu_torch.monitor.costs import (edge_csr_cost, shift_cost,
-                                               shift_fused_stage_cost)
+                                               shift_fused_stage_cost,
+                                               step_factor_cost)
     dt = s_main.dtype
     M0 = s_main.dmesh.levels[0]
     q = s_main.state["variables"][0]
@@ -1230,6 +1292,11 @@ def kernel_records(s_main, s_win, spill_csr, runs, card_label: str):
          lambda: edge_csr.edge_csr_plain("flux", spill, q), None,
          *edge_csr_cost("flux", spill, sz)),
     ]
+    rows.append((
+        "step_factor", "step_factor", "main",
+        lambda: step_factor(q, M0.volumes, M0.cbrt_volumes, False, M0.step),
+        lambda: stage_factors_plain(q, M0.volumes, M0.cbrt_volumes, False),
+        None, *step_factor_cost(M0.num_nodes, sz)))
     return time_rows(rows, runs, dt, launch_floor_ms(q.device), card_label)
 
 
@@ -1664,17 +1731,19 @@ def want_sharded(levels: int) -> dict:
     ('window') on a mesh of `levels` levels: the V-cycle visits level 0
     and the coarsest once, the others twice; level 0's 3 RK stages
     through edge_csr.flux and rw over each rank's owner CSR, the
-    replicated levels' through fused_stage and rw; a restriction and a
-    prolongation a coarse level."""
+    replicated levels' through fused_stage and rw and their step factors
+    through step_factor (level 0's is the sharded solver's own); a
+    restriction and a prolongation a coarse level."""
     visits = 2 * levels - 2
     return {"edge_csr.flux": 3, "edge_csr.rw": 3 * visits,
             "fused_stage": 3 * (visits - 1),
+            "step_factor": 2 * (visits - 1),
             "edge_csr.wsum.restrict": levels - 1,
             "edge_csr.wsum.prolong": levels - 1}
 
 
-# the 4-level tet flagship's: 3 edge_csr.flux, 18 rw, 15 fused_stage and
-# 3 of each transfer
+# the 4-level tet flagship's: 3 edge_csr.flux, 18 rw, 15 fused_stage, 10
+# step_factor and 3 of each transfer
 WANT_SHARDED = want_sharded(4)
 # the sharded solver against the single-device port at fp64: every value
 # within this relative difference (mgcfd_tpu's tests/test_parallel.py
@@ -2057,6 +2126,7 @@ def smoke(tet_job, scratch: Path) -> int:
                      ("float64", "float32", "bfloat16"))
 
     check_csr_kernels((w64, w32, w16))
+    check_step_factor((w64, w32, w16))
     for w in (w64, w32, w16):
         check_rw(w, "box flagship")
         check_flux(w, "box flagship")
@@ -2158,7 +2228,11 @@ def smoke(tet_job, scratch: Path) -> int:
                          ("float64", "float32", "bfloat16"))
         for u in (k64, k32, k16):
             u.load_state(ustart)
-            u.run(2)
+            _, pc = counted_run(u, 2, f"undamped box {TAGS[str(u.dtype)]} "
+                                f"'{mode}'")
+            require(pc["step_factor"] == 6, f"undamped box '{mode}' "
+                    f"{u.dtype}: {pc['step_factor']} step_factor launches a "
+                    "cycle, not 6 (the legacy variant's one a visit)")
         same_as_plain(k64, up64, umesh,
                       f"undamped box fp64 '{mode}', 2 cycles")
         rms_rel = [abs(a - b) / abs(b)
@@ -2230,7 +2304,7 @@ def smoke(tet_job, scratch: Path) -> int:
             "tet 'pallas' run missed the span stage")
     same_as_plain(ktp, pt, tmesh, "tet fp64 'pallas', 2 cycles")
     counted_run(kt16, 2, "tet bf16 ('window', auto)",
-                {"fused_stage": 12, "edge_csr.rw": 12,
+                {"fused_stage": 12, "edge_csr.rw": 12, "step_factor": 8,
                  "edge_csr.wsum.restrict": 2, "edge_csr.wsum.prolong": 2})
     healthy(kt16, "tet bf16 'window'")
 

@@ -26,6 +26,12 @@ from ..monitor.opstats import SETTLE_S
 
 # the cycles of one run_batched replay
 K = 10
+# one-cycle spin kernels (torch.cuda._sleep) that each profile runs before
+# its wait and its work, and that its results leave out: a profile in a
+# process that has run and profiled for minutes can lose the records of
+# its first few kernels (six on the H100, whatever the wait), which then
+# are these
+PRELUDE_KERNELS = 16
 
 
 def profile_cycles(fn, cycles: int):
@@ -37,6 +43,9 @@ def profile_cycles(fn, cycles: int):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PRELUDE_KERNELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         time.sleep(SETTLE_S)
         t0 = time.perf_counter()
         fn()
@@ -45,10 +54,11 @@ def profile_cycles(fn, cycles: int):
         time.sleep(SETTLE_S)
     events = prof.key_averages()
     # the device records, not the device-side copies of the host's
-    # ranges (run_batched's spans under a profile)
+    # ranges (run_batched's spans under a profile), nor the prelude's
     kernels = [e for e in events if e.self_device_time_total > 0
                and e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+               and not getattr(e, "is_user_annotation", False)
+               and "spin_kernel" not in e.key]
     busy = sum(e.self_device_time_total for e in kernels) / cycles / 1e3
     return wall, busy, kernels, events
 

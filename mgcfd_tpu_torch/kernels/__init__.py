@@ -2,7 +2,9 @@
 
 WRAPPERS lists every kernel wrapper; each counts its own kernel launches
 so that a run can show which kernels it went through (utils.spans's
-counters() reports them as launches.<wrapper>). The window path
+counters() reports them as launches.<wrapper>). Both variable-major
+paths run step_factor once a level visit (two launches, one for the
+legacy variant). The window path
 (accumulate='window') runs fused_stage, edge_csr.rw, edge_csr.restrict and
 edge_csr.prolong, or with fuse_window_stage=False edge_csr.flux over the
 whole owner CSR in place of fused_stage; the box path (accumulate='pallas') runs
@@ -11,13 +13,13 @@ the same restrict and prolong, plus edge_csr.flux and edge_csr.rw over
 the spill edges where its plan leaves any.
 """
 from ..utils import spans
-from . import edge_csr, fused_stage as _fused, shift
+from . import edge_csr, fused_stage as _fused, shift, step_factor as _step
 from .edge_csr import DeviceCSR
 from .shift import DeviceShift
 
 WRAPPERS = (edge_csr.flux, edge_csr.rw, edge_csr.restrict,
             edge_csr.prolong, _fused.fused_stage, shift.flux, shift.rw,
-            shift.fused_stage)
+            shift.fused_stage, _step.step_factor)
 
 
 def reset_launch_counts() -> None:

@@ -55,6 +55,7 @@ _SIGNATURES = {
     "mgcfd_flux_shape": [_I, _I, _I, _P],
     "mgcfd_shift_fused_stage": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _I, _P],
+    "mgcfd_step_factor": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P],
 }
 
 # the dtype code every C entry point takes first: the storage type of the

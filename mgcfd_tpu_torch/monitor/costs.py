@@ -11,6 +11,8 @@ ops/. Each function returns (bytes, operations) of one call.
 """
 from __future__ import annotations
 
+from ..core.constants import RK
+
 # a node's completion [rho, m, E, p, speed + sos, 1/rho] (complete8)
 FLUX_OPS_PER_ROW = 17
 # flux_math, one half-edge's flux from two completed nodes
@@ -29,7 +31,8 @@ SHIFT_RW_OPS_PER_SPAN_ROW = 2 * 12
 BW_OPS_PER_ROW = 58
 # the step factor: completion, dt, the min, the division by V
 STEP_OPS_PER_NODE = 22
-# the time step: sf / (RK + 1 - j), then old + factor * flux
+# the time step: sf / (RK + 1 - j), then old + factor * flux (one fewer
+# where step_factor gives the stage's factor)
 TIME_STEP_OPS_PER_NODE = 11
 # the edge-stream paths: per internal edge both completions, flux_math and
 # the two accumulations; per boundary or wall edge a completion, its flux
@@ -87,6 +90,14 @@ def shift_fused_stage_cost(sh, sz: int):
              + FUSED_EXTRA_OPS_PER_ROW) * n)
 
 
+def step_factor_cost(n: int, sz: int, legacy: bool = False):
+    """step_factor over n nodes: q and cbrt(V) in, then V in and the RK
+    stage factors out (legacy: q and V in, the factors out); the
+    STEP_OPS_PER_NODE of the step factor and a multiply a stage."""
+    return (sz * n * (5 + (1 if legacy else 2) + RK),
+            (STEP_OPS_PER_NODE + RK) * n)
+
+
 def _edges_cost(lvl, mode: str, sz: int):
     """The edge-stream formulation ('segment', node-major 'shift'): the
     state and the edge lists in, (N, 5) out."""
@@ -129,22 +140,29 @@ def _fission_cost(lvl, function: str, sz: int):
 
 
 def function_cost(function: str, levels, level: int, accumulate: str,
-                  variable_major: bool, sz: int, fission: bool = False):
+                  variable_major: bool, sz: int, fission: bool = False,
+                  stage_factors: bool = False, legacy: bool = False):
     """One call of a solver function on `level` (a DeviceLevel of
     `levels`) of a path: compute_step, flux, update (fission only),
     time_step, indirect_rw, restrict (this level onto the next) or
     prolong (the next onto this). Flux includes the boundary and wall
     edges: on the variable-major paths their aggregated normals (11, N)
     and BW_OPS_PER_ROW a node; under fission it is the per-edge values
-    alone and update their accumulation."""
+    alone and update their accumulation. With stage_factors (the
+    variable-major visits of solver.py) compute_step is step_factor, the
+    RK stages' factors (`legacy`: the variant's step factor), and the time
+    step takes its factor as it is."""
     lvl = levels[level]
     n = lvl.num_nodes
     if fission and function in ("flux", "update"):
         return _fission_cost(lvl, function, sz)
     if function == "compute_step":
+        if stage_factors:
+            return step_factor_cost(n, sz, legacy)
         return sz * n * (5 + 1 + 1 + 1), STEP_OPS_PER_NODE * n
     if function == "time_step":
-        return sz * n * (1 + 5 + 5 + 5), TIME_STEP_OPS_PER_NODE * n
+        return (sz * n * (1 + 5 + 5 + 5),
+                (TIME_STEP_OPS_PER_NODE - stage_factors) * n)
     if function in ("flux", "indirect_rw"):
         mode = "flux" if function == "flux" else "rw"
         if not variable_major:

@@ -14,7 +14,7 @@ LoopNumIters.csv in the reference's schema plus KernelCosts.csv
 The cycle timed is MGCFDSolver's own: its run, with each function's
 kscope (solver.py) wrapped in this solver's timer (solver.timed_calls),
 so Times.csv attributes the kernels of the configuration users run
-(solver.t_step_factor, t_compute_fluxes, tops.t_time_step, t_indirect_rw,
+(solver.t_stage_factors, t_compute_fluxes, the time step, t_indirect_rw,
 apply_restrict, apply_prolong, or the node-major twins on 'segment' and
 'shift'). Every cycle is checked for an invalid state, as the
 reference's instrumented run is. One deliberate exception: the fused RK
@@ -162,13 +162,20 @@ class InstrumentedSolver:
         for function, level in self.stats.calls:
             nbytes, ops = costs.function_cost(
                 function, self.dmesh.levels, level,
-                *self._cost_path(level), sz, self.config.flux_fission)
+                *self._cost_path(level), sz, self.config.flux_fission,
+                self._stage_factors(level),
+                self.dmesh.variant.uses_legacy_step_factor)
             self.stats.cost_details.setdefault((function, level), {}).update(
                 model_bytes=nbytes, model_operations=ops)
 
     def _cost_path(self, level: int):
         """(accumulate, variable_major) of the cost model on `level`."""
         return self.config.accumulate, self.tstate
+
+    def _stage_factors(self, level: int) -> bool:
+        """Whether `level`'s compute_step is step_factor (solver.py's
+        variable-major visits)."""
+        return self.tstate
 
     def run(self, cycles: int | None = None, verbose: bool = False,
             warmup: bool = True) -> KernelStats:

@@ -34,3 +34,7 @@ class InstrumentedShardedSolver(InstrumentedSolver):
         if level < base.S:       # the block's CSRs, else its edge stream
             return ("window", True) if base._kernels else ("segment", False)
         return self.config.accumulate, self.tstate
+
+    def _stage_factors(self, level: int) -> bool:
+        # the block levels' step factor is the sharded solver's own
+        return level >= self._base.S and self.tstate
