@@ -13,7 +13,11 @@ The wrapper launches the kernel for CUDA tensors and takes the plain
 version only for tensors on the CPU; anything else raises.
 Each role on the solver's path has its own wrapper instance with its own
 launch count (``launches``, a plain int added to at each kernel launch):
-``flux``, ``rw``, ``restrict`` and ``prolong``.
+``flux``, ``rw``, ``restrict`` and ``prolong``. Each also counts its
+launches by the shape the C entry point chose (``by_shape``, keyed by
+the counter name ``<wrapper>.<shape>``, e.g. ``edge_csr.rw.tile``); the
+shape is asked of the entry point once per CSR, at the wrapper's first
+launch on it.
 
 In flux and rw modes the neighbour space may be wider than the owner
 space, with the owners its first num_rows columns: the sharded solver's
@@ -66,6 +70,8 @@ FLUX_TILE_ROWS = 128
 # levels from THIN_BELOW up to FLUX_MID_LEVEL rows of long rows take the
 # row kernel at fp32 and bf16 (kFluxMidLevel)
 FLUX_MID_LEVEL = 65536
+# a wsum shape's name: how its threads load a row's entries
+WSUM_LOADS = {PLAIN: "plain", CHUNKED: "chunked", BATCHED: "batched"}
 _MIN_WEIGHT_ROWS = {"flux": 4, "rw": 3, "wsum": 1}
 
 
@@ -80,6 +86,10 @@ class DeviceCSR:
     col: torch.Tensor
     owner: torch.Tensor
     w: torch.Tensor
+    # wrapper name -> the counter its launches on this CSR add to, from
+    # the shape the C entry point chose (EdgeCSR.counter)
+    counters: dict = dataclasses.field(default_factory=dict, repr=False,
+                                       compare=False)
 
     @property
     def num_entries(self) -> int:
@@ -270,6 +280,21 @@ class EdgeCSR:
         self.name = name
         self.mode = mode
         self.launches = 0
+        self.by_shape: dict = {}
+
+    def counter(self, shape) -> str:
+        """The counter a launch at `shape` (as rw_shape, flux_shape or
+        wsum_shape give it for this wrapper's mode) adds to:
+        <wrapper>.<shape name>, the name RW_SHAPES or FLUX_SHAPES gives,
+        or WSUM_LOADS' of a WsumShape's loads."""
+        if self.mode == "wsum":
+            return f"{self.name}.{WSUM_LOADS[shape.loads]}"
+        names = RW_SHAPES if self.mode == "rw" else FLUX_SHAPES
+        return f"{self.name}.{names[shape]}"
+
+    def _count(self, counter: str) -> None:
+        self.launches += 1
+        self.by_shape[counter] = self.by_shape.get(counter, 0) + 1
 
     def __call__(self, csr: DeviceCSR, x: torch.Tensor,
                  own: torch.Tensor | None = None) -> torch.Tensor:
@@ -289,7 +314,10 @@ class EdgeCSR:
             out.data_ptr(), csr.num_rows,
             torch.cuda.current_stream(x.device).cuda_stream)
         build.check(rc, self.name)
-        self.launches += 1
+        counter = csr.counters.get(self.name)
+        if counter is None:     # the CSR's first launch: ask its shape
+            counter = csr.counters[self.name] = self.counter(self.shape(csr))
+        self._count(counter)
         return out
 
     def at(self, csr: DeviceCSR, x: torch.Tensor, shape,
@@ -316,7 +344,7 @@ class EdgeCSR:
                     (x if own is None else own).data_ptr(), x.data_ptr(),
                     csr.num_cols, out.data_ptr(), csr.num_rows, stream)
         build.check(rc, self.name)
-        self.launches += 1
+        self._count(self.counter(shape))
         return out
 
     def shape(self, csr: DeviceCSR):

@@ -638,10 +638,10 @@ class CycleGraph:
     residuals back into them, so one replay advances the buffers by K
     cycles. It also leaves the K RMS values and invalid counts stacked on
     the device. ``launches`` holds the kernel launches one capture
-    recorded; a replay calls no wrapper, so replay() adds them to the
-    counts. The construction is the span mgcfd.capture: the warm-up
-    cycle, until the device has run it (mgcfd.capture.warmup), then the
-    capture (mgcfd.capture.graph)."""
+    recorded, by wrapper and by edge_csr shape; a replay calls no
+    wrapper, so replay() adds them to the counts. The construction is
+    the span mgcfd.capture: the warm-up cycle, until the device has run
+    it (mgcfd.capture.warmup), then the capture (mgcfd.capture.graph)."""
 
     @spans.span("mgcfd.capture")
     def __init__(self, solver: "MGCFDSolver", k: int):
@@ -649,7 +649,7 @@ class CycleGraph:
         st = solver.state
         self.variables = [t.clone() for t in st["variables"]]
         self.residuals = [t.clone() for t in st["residuals"]]
-        counts = kernels.launch_counts()
+        counts = kernels.launch_counts(shapes=True)
         try:
             # warm-up on a clone of the state, on a side stream as torch's
             # capture recipe asks: the first launch of a kernel builds the
@@ -682,7 +682,7 @@ class CycleGraph:
                             buf.copy_(t)
                     self.rms = torch.stack(rms)
                     self.invalid = torch.stack(invalid)
-            self.launches = kernels.launch_counts()
+            self.launches = kernels.launch_counts(shapes=True)
         finally:
             solver.state = st
             kernels.reset_launch_counts()
