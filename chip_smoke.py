@@ -410,6 +410,67 @@ def hold_stage(name, kernel, plain, args, q, dt) -> None:
             f"{pi}")
 
 
+def hold_stage_epilogues(name, kernel, plain, args, q, old, dt) -> None:
+    """A fused stage as the solver's visits launch its last RK stage: the
+    count added into an int64 counter that holds a value already, and the
+    residual stored. The state and the residual bit-equal to the same
+    kernel's without the epilogues followed by the eager q_next - old, the
+    counter its start plus that launch's count; the state against the
+    plain version's with the same epilogues (check_cases) and the counts
+    equal to its; again with a planted NaN, rho < 0 and E < 0 (bits and
+    counts only), the count then above 0."""
+    import torch
+    for label, x in (("", q), (" planted", planted(q))):
+        what = f"{name}+epilogues{label}"
+        start = torch.full((1,), 5, dtype=torch.int64, device=q.device)
+        count, pcount = start.clone(), start.clone()
+        k, kc, kres = kernel(*args(x), count=count, residual=True)
+        p, pc, _ = plain(*args(x), count=pcount, residual=True)
+        bare, binv = kernel(*args(x))
+        torch.cuda.synchronize()
+        require(kc is count and pc is pcount, f"{what} {dt}: the count "
+                "was not added into the caller's counter")
+        require(same_bits(k, bare) and same_bits(kres, bare - old),
+                f"{what} {dt}: the state or the residual differ from the "
+                "kernel's without the epilogues and the eager q - old")
+        added = int(count) - int(start)
+        require(added == int(binv) == int(pcount) - int(start)
+                and (added > 0) == bool(label),
+                f"{what} {dt}: counts {added} / {int(binv)} / "
+                f"{int(pcount) - int(start)}")
+        if not label:
+            check_cases([(what, k, p)], dt)
+        log(f"check {what:30s} {str(dt):14s} state and residual bit-equal "
+            f"to the eager ops; count {added} into the int64 counter")
+
+
+def wsum_epilogue_case(label: str, kern, csr, x, dt, keep=None,
+                       correct=None):
+    """A wsum transfer as the solver's visits launch it, with its
+    epilogue, edge_csr.restrict(keep=vars_c) or edge_csr.prolong(correct=
+    (vars_f, res_f)): bit-equal to the same kernel without it followed by
+    the eager op it replaces (the torch.where of the rows with entries;
+    vars_f + (res_f - P)). Returns its (name, kernel, plain) case against
+    edge_csr_plain with the same epilogue, for check_cases."""
+    import torch
+    from mgcfd_tpu_torch.kernels import edge_csr
+    got = kern(csr, x, keep=keep, correct=correct)
+    bare = kern(csr, x)
+    if keep is not None:
+        empty = (csr.row_ptr[1:] == csr.row_ptr[:-1])[None]
+        want = torch.where(empty, keep, bare)
+    else:
+        base, res = correct
+        want = base + (res - bare)
+    torch.cuda.synchronize()
+    name = f"{kern.name}+epilogue {label}"
+    require(same_bits(got, want), f"{name} {dt}: differs from the kernel "
+            f"without its epilogue and the eager ops at "
+            f"{int((got != want).sum())} of {got.numel()}")
+    return (name, got, edge_csr.edge_csr_plain("wsum", csr, x, keep=keep,
+                                               correct=correct))
+
+
 def level_nc(lv, dt, dev):
     """The aggregated boundary/wall normals (11, N) of a host level."""
     import numpy as np
@@ -610,7 +671,9 @@ def check_stage_shapes(mesh, tmesh, dtypes, dev) -> None:
 
 def check_csr_kernels(solvers) -> None:
     """Each CSR kernel against its plain version at level-0 shapes, and
-    fused_stage at every level's, for each solver's dtype."""
+    fused_stage and the wsum transfers at every level's, for each
+    solver's dtype: also as the solver's visits launch them, with their
+    epilogues (hold_stage_epilogues, wsum_epilogue_case)."""
     from mgcfd_tpu_torch.kernels import edge_csr
     from mgcfd_tpu_torch.kernels.fused_stage import (fused_stage,
                                                      fused_stage_plain)
@@ -658,6 +721,19 @@ def check_csr_kernels(solvers) -> None:
                               xl, dt),
                     wsum_case(f"L{lev}", edge_csr.prolong, L.prolong_csr,
                               rl, dt)], dt)
+                # the update the visits make: restrict onto a coarse
+                # state, prolong onto a fine state and residual
+                mc, nf = L.restrict_csr.num_rows, L.num_nodes
+                rf = random_state(nf, 90 + lev, dt, dev) \
+                    - random_state(nf, 91 + lev, dt, dev)
+                check_cases([
+                    wsum_epilogue_case(
+                        f"L{lev}", edge_csr.restrict, L.restrict_csr, xl,
+                        dt, keep=random_state(mc, 92 + lev, dt, dev)),
+                    wsum_epilogue_case(
+                        f"L{lev}", edge_csr.prolong, L.prolong_csr, rl, dt,
+                        correct=(random_state(nf, 93 + lev, dt, dev), rf))],
+                    dt)
             ql = random_state(L.num_nodes, 40 + lev, dt, dev)
             oldl = ql + 1e-3 * random_state(L.num_nodes, 2, dt, dev)
             facl = step_factor_plain(ql, L.volumes, L.cbrt_volumes,
@@ -665,6 +741,10 @@ def check_csr_kernels(solvers) -> None:
             hold_stage(f"fused_stage L{lev}", fused_stage,
                        fused_stage_plain,
                        lambda x: (L.csr, L.nc, x, oldl, facl), ql, dt)
+            hold_stage_epilogues(f"fused_stage L{lev}", fused_stage,
+                                 fused_stage_plain,
+                                 lambda x: (L.csr, L.nc, x, oldl, facl), ql,
+                                 oldl, dt)
 
 
 def same_bits(a, b) -> bool:
@@ -711,7 +791,8 @@ def check_shift_kernels(solvers) -> None:
     """Each span kernel against its plain version at every level's shapes
     (levels 1-3: 38,080, 4,896 and 648 nodes, no multiple of the
     256-node tile, spans up to 1120 reach across tiles), for each
-    solver's dtype; the fused stage also launched twice (bit-equal)."""
+    solver's dtype; the fused stage also launched twice (bit-equal), and
+    with and without spill with its epilogues (hold_stage_epilogues)."""
     from mgcfd_tpu_torch.kernels import shift
     from mgcfd_tpu_torch.kernels.step_factor import step_factor_plain
     for solver in solvers:
@@ -752,6 +833,12 @@ def check_shift_kernels(solvers) -> None:
                 f"{p_inv}")
             require(k_inv == p_inv > 0,
                     "shift.fused_stage invalid counts differ")
+            for what, extra in (("", ()), ("+spill", (spill,))):
+                hold_stage_epilogues(
+                    f"shift.fused_stage{what} L{lev}", shift.fused_stage,
+                    shift.shift_fused_stage_plain,
+                    lambda x, e=extra: (sh, L.nc, x, old, fac, *e), q, old,
+                    dt)
 
 
 def per_cycle(counts: dict, cycles: int) -> dict:
@@ -999,10 +1086,11 @@ def refuse_unknown_dtype(lib) -> None:
     shape = (ctypes.c_int64 * 2)()
     rcs = {
         "mgcfd_edge_csr": lib.mgcfd_edge_csr(7, 0, None, None, None, 0,
-                                             None, None, 1, None, 1, None),
+                                             None, None, 1, None, 1, None,
+                                             None, None, None),
         "mgcfd_fused_stage": lib.mgcfd_fused_stage(
-            7, None, None, None, 0, None, None, None, None, None, None, 1,
-            None),
+            7, None, None, None, 0, None, None, None, None, None, None, None,
+            1, None),
         "mgcfd_shift_flux": lib.mgcfd_shift_flux(
             7, 0, ctypes.addressof(deltas), 1, None, None, None, 1, None),
         "mgcfd_shift_flux_at": lib.mgcfd_shift_flux_at(
@@ -1011,7 +1099,8 @@ def refuse_unknown_dtype(lib) -> None:
         "mgcfd_shift_flux_shape": lib.mgcfd_shift_flux_shape(
             7, 0, 1, 1, ctypes.addressof(shape)),
         "mgcfd_wsum_at": lib.mgcfd_wsum_at(7, 0, 0, None, None, None, 0,
-                                           None, 1, None, 1, None),
+                                           None, 1, None, 1, None, None,
+                                           None, None),
         "mgcfd_wsum_shape": lib.mgcfd_wsum_shape(7, 1, 1,
                                                  ctypes.addressof(shape)),
         "mgcfd_rw_at": lib.mgcfd_rw_at(7, 0, None, None, None, 0, None, None,
@@ -1024,7 +1113,7 @@ def refuse_unknown_dtype(lib) -> None:
                                                  ctypes.addressof(shape)),
         "mgcfd_shift_fused_stage": lib.mgcfd_shift_fused_stage(
             7, ctypes.addressof(deltas), ctypes.addressof(kinds), 1, 8, 1,
-            None, None, None, None, None, None, None, None, 1, None),
+            None, None, None, None, None, None, None, None, None, 1, None),
         "mgcfd_step_factor": lib.mgcfd_step_factor(
             7, 0, None, None, None, None, 0, None, None, 1, None),
     }

@@ -11,7 +11,11 @@ a process of its own that imports mgcfd_tpu_torch from its tree and calls
 its wrappers, so any version of the kernels whose wrappers take the same
 operands can be compared:
   - the two fused RK-stage kernels, shift.fused_stage and fused_stage, at
-    level 0 (plan, nc, q, old, fac);
+    level 0 (plan, nc, q, old, fac), each also as a visit's last stage:
+    with the parent's eager ops after it (suffix +eager: q - old and the
+    int64 add of the count) and, where the tree's wrappers take them,
+    with its epilogues instead (suffix +epilogue: the residual and the
+    count stored by the kernel);
   - shift.rw and shift.flux (plan, q) at every level;
   - edge_csr.rw and edge_csr.flux (CSR, q) at every level, and the wsum
     transfers,
@@ -19,7 +23,11 @@ operands can be compared:
     has them, on the flagship and on two tets in RCM order (irregular
     rows): a 64^3 tet of 4 levels (suffix .tet64) and the tet flagship
     (suffix .tetflag); their CSRs made once, before the turns, in
-    processes of their own, and loaded by each side.
+    processes of their own, and loaded by each side; each transfer also
+    with the solver's update around it, as eager ops (suffix +eager: the
+    restriction's torch.where of the rows with entries, the
+    prolongation's vars + (res - P)) and, where the wrappers take them,
+    as the kernel's epilogue (suffix +epilogue).
 The processes run in turns, parent, new, new, parent (new alone without
 --parent), after both trees' kernels are built in parallel.
 
@@ -29,7 +37,9 @@ What each process does, for fp32, bf16 and fp64:
      --out (default build/kernel_ab);
   2. holds each kernel to its plain version (the share of bit-equal
      elements, the largest difference; for the stage kernels the invalid
-     counts) and two launches to each other;
+     counts) and two launches to each other; a +epilogue row to its
+     +eager row (the eager ops after the kernel on the card, the residual
+     too), which must be bit-equal;
   3. times each kernel warm (CUDA events around REPS back-to-back
      launches, so the operands that fit stay in the 50 MB L2) and cold
      (a 128 MB buffer written before each launch, each launch timed by
@@ -157,9 +167,17 @@ def cold_ms(fn, reps: int, flush) -> float:
     return statistics.median(times)
 
 
+def takes_epilogues(fn) -> bool:
+    """Whether a wrapper of this tree takes the epilogues' operands."""
+    import inspect
+    params = inspect.signature(fn).parameters
+    return "residual" in params or "keep" in params
+
+
 def stage_rows(dt, lv, splan, cplan, nc64, q64, dev):
     """The two stage kernels at level 0: (name, level, kernel, plain,
-    bytes); each returns (out, invalid count)."""
+    bytes); each returns (out, invalid count), the +eager and +epilogue
+    rows (out, invalid count, residual)."""
     import torch
     from mgcfd_tpu_torch.kernels import DeviceCSR, DeviceShift, shift
     from mgcfd_tpu_torch.kernels.fused_stage import (fused_stage,
@@ -173,17 +191,39 @@ def stage_rows(dt, lv, splan, cplan, nc64, q64, dev):
     old = q + 1e-6 * q
     fac = torch.full((n,), 1e-3, dtype=dt, device=dev)
     D = len(sh.deltas)
-    return [
-        ("shift.fused_stage", 0,
-         lambda: shift.fused_stage(sh, nc, q, old, fac),
+    stages = [
+        ("shift.fused_stage",
+         lambda **e: shift.fused_stage(sh, nc, q, old, fac, **e),
          lambda: shift.shift_fused_stage_plain(sh, nc, q, old, fac),
-         sz * n * (5 + 4 * D + 5 + 1 + 11 + 5) + 4),
-        ("fused_stage", 0,
-         lambda: fused_stage(csr, nc, q, old, fac),
+         sz * n * (5 + 4 * D + 5 + 1 + 11 + 5) + 4, shift.fused_stage),
+        ("fused_stage", lambda **e: fused_stage(csr, nc, q, old, fac, **e),
          lambda: fused_stage_plain(csr, nc, q, old, fac),
          4 * (n + 1) + 4 * csr.num_entries + sz * 4 * csr.num_entries
-         + sz * n * (5 + 5 + 1 + 11 + 5) + 4),
+         + sz * n * (5 + 5 + 1 + 11 + 5) + 4, fused_stage),
     ]
+
+    def eager(kern):
+        """The parent's last stage of a visit: the kernel, q - old and
+        the count added to the visit's int64."""
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+        out, inv = kern()
+        return out, total + inv, out - old
+
+    def epilogue(kern):
+        count = torch.zeros((), dtype=torch.int64, device=dev)
+        return kern(count=count, residual=True)
+
+    rows = []
+    for name, kern, plain, nbytes, wrapper in stages:
+        # the residual written, and the count as an int64
+        tail = sz * 5 * n + 4
+        rows += [(name, 0, kern, plain, nbytes),
+                 (f"{name}+eager", 0, lambda k=kern: eager(k),
+                  lambda k=kern: eager(k), nbytes + tail)]
+        if takes_epilogues(wrapper.__call__):
+            rows.append((f"{name}+epilogue", 0, lambda k=kern: epilogue(k),
+                         lambda k=kern: eager(k), nbytes + tail))
+    return rows
 
 
 def level_rows(levels, flux, state):
@@ -326,7 +366,11 @@ def tet_csrs(tets: Path, dt, dev):
 
 def wsum_rows(transfers, state):
     """The wsum transfers, edge_csr.restrict and edge_csr.prolong, on each
-    (suffix, level, restriction CSR, prolongation CSR)."""
+    (suffix, level, restriction CSR, prolongation CSR); each also with
+    the solver's update (+eager, and +epilogue where the wrappers take
+    it): the restriction keeps a coarse state on its rows with no
+    entries, the prolongation returns vars + (res - P)."""
+    import torch
     from mgcfd_tpu_torch.kernels import edge_csr
     rows = []
     for suffix, lev, rcsr, pcsr in transfers:
@@ -334,17 +378,39 @@ def wsum_rows(transfers, state):
                                 ("prolong", edge_csr.prolong, pcsr)):
             sz = csr.w.element_size()
             x = state(csr.num_cols, 21 + lev)
-            rows.append((f"edge_csr.wsum.{what}{suffix}", lev,
-                         lambda k=kern, c=csr, x=x: k(c, x),
+            a = state(csr.num_rows, 41 + lev)
+            b = state(csr.num_rows, 51 + lev)
+            empty = (csr.row_ptr[1:] == csr.row_ptr[:-1])[None]
+            name = f"edge_csr.wsum.{what}{suffix}"
+            nbytes = 4 * (csr.num_rows + 1) + (4 + sz) * csr.num_entries \
+                + sz * 5 * (csr.num_cols + csr.num_rows)
+            rows.append((name, lev, lambda k=kern, c=csr, x=x: k(c, x),
                          lambda c=csr, x=x: edge_csr.edge_csr_plain(
-                             "wsum", c, x),
-                         4 * (csr.num_rows + 1) + (4 + sz) * csr.num_entries
-                         + sz * 5 * (csr.num_cols + csr.num_rows)))
+                             "wsum", c, x), nbytes))
+            if what == "restrict":
+                def eager(k=kern, c=csr, x=x, a=a, e=empty):
+                    return torch.where(e, a, k(c, x))
+
+                def epilogue(k=kern, c=csr, x=x, a=a):
+                    return k(c, x, keep=a)
+                # the kept state's reads on the rows with no entries
+                tail = sz * 5 * int(empty.sum())
+            else:
+                def eager(k=kern, c=csr, x=x, a=a, b=b):
+                    return a + (b - k(c, x))
+
+                def epilogue(k=kern, c=csr, x=x, a=a, b=b):
+                    return k(c, x, correct=(a, b))
+                tail = sz * 10 * csr.num_rows
+            rows.append((f"{name}+eager", lev, eager, eager, nbytes + tail))
+            if takes_epilogues(kern.__call__):
+                rows.append((f"{name}+epilogue", lev, epilogue, eager,
+                             nbytes + tail))
     return rows
 
 
 def shape_sweep(label, tag, levels, flux, transfers, state, smi,
-                outputs, only: str = "") -> None:
+                outputs, only=("",)) -> None:
     """shift.rw and shift.flux at every shape their kernel is built for
     (rw: with and without a thread per (node, channel); both: with and
     without the span loop unrolled), edge_csr.rw and edge_csr.flux at each
@@ -354,7 +420,7 @@ def shape_sweep(label, tag, levels, flux, transfers, state, smi,
     warm; the shape each C entry point picks marked, and any output that
     differs from the chosen shape's flagged (flux mode's unrolled and
     looped forms differ in the last bits). Only the kernels whose names
-    start with `only`."""
+    start with one of the prefixes `only`."""
     import torch
     from mgcfd_tpu_torch.kernels import edge_csr, shift
 
@@ -432,6 +498,7 @@ def run_side(args) -> int:
     if args.tree.resolve() not in where.parents:
         raise RuntimeError(f"imported {where}, not from {args.tree}")
     label, smi = args.label, card()
+    only = tuple(args.only.split(","))
     print(f"{label}: {where.parent}; {smi}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
     if args.ptxas:
@@ -474,13 +541,16 @@ def run_side(args) -> int:
         flux += tflux
         rows = stage_rows(dt, lv, splan, cplan, nc64, q64, dev) \
             + level_rows(levels, flux, state) + wsum_rows(tets, state)
-        rows = [r for r in rows if r[0].startswith(args.only)]
+        rows = [r for r in rows if r[0].startswith(only)]
         for name, lev, kfn, pfn, nbytes in rows:
             got, again, want = kfn(), kfn(), pfn()
             torch.cuda.synchronize()
             inv = ""
             if isinstance(got, tuple):
                 inv = f", invalid {int(got[1])}/{int(want[1])}"
+                if len(got) == 3:
+                    inv += (", residual bit-equal "
+                            f"{bf16_agreement(got[2], want[2])[1]:.4f}")
                 got, again, want = got[0], again[0], want[0]
             outputs[f"{name} L{lev} {tag}"] = got.cpu()
             ratio, same = bf16_agreement(got, want)
@@ -498,7 +568,7 @@ def run_side(args) -> int:
         if args.shapes and hasattr(edge_csr, "RW_SHAPES"):
             shape_sweep(label, tag, levels, flux,
                         flagship_transfers(levels) + tets, state, smi,
-                        outputs, args.only)
+                        outputs, only)
         del levels, flux, tets
     if args.save is not None:
         torch.save(outputs, args.save)
@@ -605,6 +675,9 @@ def run_turns(args) -> int:
         a = torch.load(saved["new"])
         b = torch.load(saved["parent"])
         for key in a:
+            if key.split(" shape=")[0] not in b:
+                print(f"{key}: new only")
+                continue
             want = b[key.split(" shape=")[0]]
             same = float((a[key] == want).double().mean())
             diff = float((a[key].double() - want.double()).abs().max())
@@ -625,7 +698,8 @@ def main(argv=None) -> int:
                    "launch shape")
     p.add_argument("--only", default="", metavar="NAME",
                    help="only the kernels whose names start with NAME, "
-                   "for example edge_csr.rw")
+                   "for example edge_csr.rw, or with one of a "
+                   "comma-separated list of names")
     p.add_argument("--side", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--tree", type=Path, default=TREE, help=argparse.SUPPRESS)
     p.add_argument("--label", default="new", help=argparse.SUPPRESS)

@@ -201,21 +201,42 @@ __device__ __forceinline__ int invalid_value(int c, T v) {
   return (isfinite(v) ? 0 : 1) + ((c == 0 || c == 4) && v < T(0) ? 1 : 0);
 }
 
-// add each thread's count to *invalid: a warp-shuffle and shared-memory
+// add each thread's count to *total, an int64 the caller keeps across
+// launches (the cycle's invalid count): a warp-shuffle and shared-memory
 // sum per block, then one integer atomicAdd per block, so the total does
-// not depend on the order of the blocks. Every thread of the block calls it.
-__device__ __forceinline__ void add_block_count(int bad,
-                                                int* __restrict__ invalid) {
+// not depend on the order of the blocks. Every thread of the block calls
+// it.
+__device__ __forceinline__ void add_block_count(
+    int bad, long long* __restrict__ total) {
   for (int off = 16; off > 0; off >>= 1)
     bad += __shfl_down_sync(0xffffffffu, bad, off);
   __shared__ int warp_bad[kThreads / 32];
   if ((threadIdx.x & 31) == 0) warp_bad[threadIdx.x >> 5] = bad;
   __syncthreads();
   if (threadIdx.x == 0) {
-    int total = 0;
-    for (int k = 0; k < kThreads / 32; ++k) total += warp_bad[k];
-    if (total) atomicAdd(invalid, total);
+    int sum = 0;
+    for (int k = 0; k < kThreads / 32; ++k) sum += warp_bad[k];
+    if (sum)
+      atomicAdd(reinterpret_cast<unsigned long long*>(total),
+                static_cast<unsigned long long>(sum));
   }
+}
+
+// a - b and a + b rounded once to nearest even, never contracted with a
+// neighbouring multiply into an FMA: the epilogues (window.cuh's
+// update_node, edge_csr.cu's wsum stores) give the bits of the eager
+// PyTorch ops they replace, which round each operation
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
 }
 
 inline unsigned blocks_for(int64_t rows, int per_block = kThreads) {

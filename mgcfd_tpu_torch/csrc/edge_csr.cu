@@ -73,6 +73,13 @@
 //     levels (bench/kernel_ab.py --shapes; PERF.md section 6).
 //   - Each sum is taken in CSR order whatever the shape, so every shape
 //     gives the first port's bits.
+//   - wsum mode's epilogues (WsumTail), in the store of every shape: the
+//     restriction stores the coarse state it is given (keep) on rows with
+//     no entries, the coarse nodes that no fine node maps to, where the
+//     solver took a torch.where of the mask; the prolongation stores the
+//     fine state's update base + (res - sum) where the solver took two
+//     eager ops. Each is rounded as those ops round, so the bits are
+//     theirs; a null operand stores the sum.
 // At bfloat16 (the bf16 branch, :254-296) the state and weights halve and
 // row_ptr and col do not: about 29 MB in flux mode. Each sum stays in
 // float32 until its one rounded store.
@@ -547,37 +554,88 @@ __device__ __forceinline__ void wsum_row(const int* __restrict__ row_ptr,
   for (; h < end; ++h) wsum_entry<S, NC>(col, w, x, n_nbr, h, c0, acc);
 }
 
+// wsum mode's epilogues, (5, n_rows) operands like out, each null or not:
+// keep, the value a row with no entries stores (the restriction's coarse
+// state); base and res together, out = base + (res - sum) (the
+// prolongation: the fine state and its residual). Neither: out = sum.
+// The kernels take which one as a template argument (WsumTailKind), so
+// that a launch without one runs the store as it was before them.
+template <typename S>
+struct WsumTail {
+  const S* keep;
+  const S* base;
+  const S* res;
+};
+enum WsumTailKind : int { kSumOnly = 0, kKeepEmpty = 1, kCorrect = 2 };
+
+// whether row i stores keep's values and nothing else: with kKeepEmpty,
+// where it has no entries (tested before the row's sum, so that nothing
+// of the test stays live through it)
+template <typename S, int TAIL>
+__device__ __forceinline__ bool wsum_keeps(const int* __restrict__ row_ptr,
+                                           int64_t i) {
+  if constexpr (TAIL == kKeepEmpty) return row_ptr[i] == row_ptr[i + 1];
+  return false;
+}
+
+// the store of element k of a row's sum acc: the sum rounded to storage;
+// with kCorrect base + (res - sum), each operation rounded to storage as
+// PyTorch's two eager ops round it
+template <typename S, int TAIL, typename C = compute_t<S>>
+__device__ __forceinline__ S wsum_store(const WsumTail<S>& tail, C acc,
+                                        int64_t k) {
+  const S sum = to_storage<S>(acc);
+  if constexpr (TAIL == kCorrect) {
+    const S d = to_storage<S>(sub_rn(to_compute(tail.res[k]),
+                                     to_compute(sum)));
+    return to_storage<S>(add_rn(to_compute(tail.base[k]), to_compute(d)));
+  }
+  return sum;
+}
+
 // one thread per row, all five channels
-template <typename S, int64_t LOADS>
+template <typename S, int64_t LOADS, int TAIL>
 __global__ void __launch_bounds__(kThreads)
     wsum_row_kernel(const int* __restrict__ row_ptr,
                     const int* __restrict__ col, const S* __restrict__ w,
                     const S* __restrict__ x, int64_t n_nbr,
-                    S* __restrict__ out, int64_t n_rows, bool aligned) {
+                    S* __restrict__ out, int64_t n_rows, bool aligned,
+                    WsumTail<S> tail) {
   using C = compute_t<S>;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n_rows) return;
+  if (wsum_keeps<S, TAIL>(row_ptr, i)) {
+    for (int c = 0; c < 5; ++c)
+      out[c * n_rows + i] = tail.keep[c * n_rows + i];
+    return;
+  }
   C acc[5];
   wsum_row<S, 5, LOADS>(row_ptr, col, w, x, n_nbr, i, 0, aligned, acc);
-  for (int c = 0; c < 5; ++c) out[c * n_rows + i] = to_storage<S>(acc[c]);
+  for (int c = 0; c < 5; ++c)
+    out[c * n_rows + i] = wsum_store<S, TAIL>(tail, acc[c], c * n_rows + i);
 }
 
 // one thread per (row, channel): thread (c, r) of a block sums channel c
 // of row r (the block layout of kChannelLanes)
-template <typename S, int64_t LOADS>
+template <typename S, int64_t LOADS, int TAIL>
 __global__ void __launch_bounds__(kChannelThreads)
     wsum_split_kernel(const int* __restrict__ row_ptr,
                       const int* __restrict__ col, const S* __restrict__ w,
                       const S* __restrict__ x, int64_t n_nbr,
-                      S* __restrict__ out, int64_t n_rows, bool aligned) {
+                      S* __restrict__ out, int64_t n_rows, bool aligned,
+                      WsumTail<S> tail) {
   using C = compute_t<S>;
   const int c = threadIdx.x / kChannelLanes;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kChannelLanes +
                     threadIdx.x % kChannelLanes;
   if (i >= n_rows) return;
+  if (wsum_keeps<S, TAIL>(row_ptr, i)) {
+    out[c * n_rows + i] = tail.keep[c * n_rows + i];
+    return;
+  }
   C acc[1];
   wsum_row<S, 1, LOADS>(row_ptr, col, w, x, n_nbr, i, c, aligned, acc);
-  out[c * n_rows + i] = to_storage<S>(acc[0]);
+  out[c * n_rows + i] = wsum_store<S, TAIL>(tail, acc[0], c * n_rows + i);
 }
 
 // the wsum launch shape: a thread per (row, channel) or per row, and the
@@ -597,23 +655,41 @@ inline WsumShape choose_wsum(int64_t n_rows, int64_t n_half) {
   return WsumShape{n_rows < kThinBelow, full64 ? kPlainLoads : kBatchedLoads};
 }
 
+template <typename S, int64_t LOADS, int TAIL>
+void launch_wsum_t(int64_t split, const int* rp, const int* cl,
+                   const S* wt, const S* xn, int64_t n_nbr, S* o,
+                   int64_t n_rows, bool aligned, const WsumTail<S>& tail,
+                   cudaStream_t stream) {
+  if (split)
+    wsum_split_kernel<S, LOADS, TAIL>
+        <<<blocks_for(n_rows, kChannelLanes), kChannelThreads, 0, stream>>>(
+            rp, cl, wt, xn, n_nbr, o, n_rows, aligned, tail);
+  else
+    wsum_row_kernel<S, LOADS, TAIL>
+        <<<blocks_for(n_rows), kThreads, 0, stream>>>(
+            rp, cl, wt, xn, n_nbr, o, n_rows, aligned, tail);
+}
+
 template <typename S, int64_t LOADS>
 void launch_wsum_l(int64_t split, const int* rp, const int* cl,
                    const S* wt, const S* xn, int64_t n_nbr, S* o,
-                   int64_t n_rows, bool aligned, cudaStream_t stream) {
-  if (split)
-    wsum_split_kernel<S, LOADS>
-        <<<blocks_for(n_rows, kChannelLanes), kChannelThreads, 0, stream>>>(
-            rp, cl, wt, xn, n_nbr, o, n_rows, aligned);
+                   int64_t n_rows, bool aligned, const WsumTail<S>& tail,
+                   cudaStream_t stream) {
+  if (tail.base != nullptr)
+    launch_wsum_t<S, LOADS, kCorrect>(split, rp, cl, wt, xn, n_nbr, o,
+                                      n_rows, aligned, tail, stream);
+  else if (tail.keep != nullptr)
+    launch_wsum_t<S, LOADS, kKeepEmpty>(split, rp, cl, wt, xn, n_nbr, o,
+                                        n_rows, aligned, tail, stream);
   else
-    wsum_row_kernel<S, LOADS><<<blocks_for(n_rows), kThreads, 0, stream>>>(
-        rp, cl, wt, xn, n_nbr, o, n_rows, aligned);
+    launch_wsum_t<S, LOADS, kSumOnly>(split, rp, cl, wt, xn, n_nbr, o,
+                                      n_rows, aligned, tail, stream);
 }
 
 template <typename S>
 int launch_wsum(WsumShape s, const int* rp, const int* cl, const S* wt,
                 const S* xn, int64_t n_nbr, S* o, int64_t n_rows,
-                cudaStream_t stream) {
+                const WsumTail<S>& tail, cudaStream_t stream) {
   constexpr uintptr_t kWAlign = kChunk * sizeof(S) < 16 ? kChunk * sizeof(S)
                                                         : 16;
   const bool aligned = reinterpret_cast<uintptr_t>(cl) % 16 == 0 &&
@@ -621,15 +697,15 @@ int launch_wsum(WsumShape s, const int* rp, const int* cl, const S* wt,
   switch (s.loads) {
     case kPlainLoads:
       launch_wsum_l<S, kPlainLoads>(s.split, rp, cl, wt, xn, n_nbr, o,
-                                    n_rows, aligned, stream);
+                                    n_rows, aligned, tail, stream);
       break;
     case kChunkedLoads:
       launch_wsum_l<S, kChunkedLoads>(s.split, rp, cl, wt, xn, n_nbr, o,
-                                      n_rows, aligned, stream);
+                                      n_rows, aligned, tail, stream);
       break;
     case kBatchedLoads:
       launch_wsum_l<S, kBatchedLoads>(s.split, rp, cl, wt, xn, n_nbr, o,
-                                      n_rows, aligned, stream);
+                                      n_rows, aligned, tail, stream);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -641,7 +717,7 @@ template <typename S>
 int launch(int64_t mode, const void* row_ptr, const void* col,
            const void* w, int64_t n_half, const void* x_own,
            const void* x_nbr, int64_t n_nbr, void* out, int64_t n_rows,
-           cudaStream_t stream) {
+           const WsumTail<S>& tail, cudaStream_t stream) {
   const auto* rp = static_cast<const int*>(row_ptr);
   const auto* cl = static_cast<const int*>(col);
   const auto* wt = static_cast<const S*>(w);
@@ -657,7 +733,7 @@ int launch(int64_t mode, const void* row_ptr, const void* col,
                           xo, xn, n_nbr, o, n_rows, stream);
     case kWsum:
       return launch_wsum<S>(choose_wsum<S>(n_rows, n_half), rp, cl, wt, xn,
-                            n_nbr, o, n_rows, stream);
+                            n_nbr, o, n_rows, tail, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -671,33 +747,40 @@ int launch(int64_t mode, const void* row_ptr, const void* col,
 // float32, 1 float64, 2 bfloat16 (the storage type of w, x and out).
 // Pointers are device pointers: row_ptr (n_rows + 1) int32, col (n_half)
 // int32, w (K, n_half), x_own (5, n_rows) (unused in wsum mode), x_nbr
-// (5, n_nbr), out (5, n_rows).
+// (5, n_nbr), out (5, n_rows); in wsum mode the epilogues' operands keep,
+// base and res (5, n_rows) or null (WsumTail), null in the other modes.
 extern "C" int mgcfd_edge_csr(int64_t dtype, int64_t mode,
                               const void* row_ptr, const void* col,
                               const void* w, int64_t n_half,
                               const void* x_own, const void* x_nbr,
                               int64_t n_nbr, void* out, int64_t n_rows,
-                              void* stream) {
+                              const void* keep, const void* base,
+                              const void* res, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return mgcfd::dispatch_dtype(dtype, [&](auto tag) {
     using S = decltype(tag);
     if (n_rows == 0) return 0;
+    const mgcfd::WsumTail<S> tail{static_cast<const S*>(keep),
+                                  static_cast<const S*>(base),
+                                  static_cast<const S*>(res)};
     return mgcfd::launch<S>(mode, row_ptr, col, w, n_half, x_own, x_nbr,
-                            n_nbr, out, n_rows, s);
+                            n_nbr, out, n_rows, tail, s);
   });
 }
 
 // wsum mode at a given shape (split: a thread per (row, channel); loads:
 // 0 plain, 1 chunked, 2 batched); the other arguments as
-// mgcfd_edge_csr's. Only bench/kernel_ab.py --shapes calls it: the sweep
-// that set choose_wsum's thresholds times every shape of the library the
-// solver loads, so it times the code the path runs, with no second build
-// in a chip call.
+// mgcfd_edge_csr's. bench/kernel_ab.py --shapes and the card tests call
+// it: the sweep that set choose_wsum's thresholds times every shape of the
+// library the solver loads, so it times the code the path runs, with no
+// second build in a chip call.
 extern "C" int mgcfd_wsum_at(int64_t dtype, int64_t split, int64_t loads,
                              const void* row_ptr, const void* col,
                              const void* w, int64_t n_half,
                              const void* x_nbr, int64_t n_nbr, void* out,
-                             int64_t n_rows, void* stream) {
+                             int64_t n_rows, const void* keep,
+                             const void* base, const void* res,
+                             void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return mgcfd::dispatch_dtype(dtype, [&](auto tag) {
     using S = decltype(tag);
@@ -706,6 +789,9 @@ extern "C" int mgcfd_wsum_at(int64_t dtype, int64_t split, int64_t loads,
         mgcfd::WsumShape{split, loads}, static_cast<const int*>(row_ptr),
         static_cast<const int*>(col), static_cast<const S*>(w),
         static_cast<const S*>(x_nbr), n_nbr, static_cast<S*>(out), n_rows,
+        mgcfd::WsumTail<S>{static_cast<const S*>(keep),
+                           static_cast<const S*>(base),
+                           static_cast<const S*>(res)},
         s);
   });
 }

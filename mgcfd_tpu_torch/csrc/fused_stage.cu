@@ -7,10 +7,14 @@
 // mode), adds the dense boundary + wall flux from the per-node aggregated
 // normals nc (11, n: rows 0:3 boundary, 3:6 wall, 6:11 the far-field wall
 // constant; _bw_flux_ch :335), writes out = old + fac * flux and counts
-// NaN, Inf, rho < 0 and E < 0 into one int32. The count is reduced per
-// block (warp shuffles, then shared memory) and added with one integer
-// atomicAdd per block, so it is deterministic. There is no spill operand:
-// the CSR holds every half-edge.
+// NaN, Inf, rho < 0 and E < 0 into total, an int64 the caller keeps
+// across the visit's launches (the cycle's invalid count). The count is
+// reduced per block (warp shuffles, then shared memory) and added with
+// one integer atomicAdd per block, so it is deterministic. There is no
+// spill operand: the CSR holds every half-edge.
+// The epilogue: res, where it is not null, the residual out - old from
+// the stored values, which the last RK stage writes in place of the
+// solver's eager q - old.
 //
 // Bound on the H100 (3.35 TB/s): bytes. Level 0 of the box flagship at
 // fp32 moves row_ptr and col (8.4 MB), the weights (4 x 1,800,656 half-
@@ -80,14 +84,15 @@
 
 namespace mgcfd {
 
-template <typename S>
+template <typename S, bool RES>
 __global__ void __launch_bounds__(kThreads, FusedMinBlocks<S>::value)
     fused_stage_kernel(const int* __restrict__ row_ptr,
                        const int* __restrict__ col, const S* __restrict__ w,
                        int64_t n_half, const S* __restrict__ q,
                        const S* __restrict__ old, const S* __restrict__ fac,
                        const S* __restrict__ nc, S* __restrict__ out,
-                       int* __restrict__ invalid, int64_t n, bool vec) {
+                       S* __restrict__ res, long long* __restrict__ total,
+                       int64_t n, bool vec) {
   using C = compute_t<S>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = threadIdx.x;
@@ -97,27 +102,29 @@ __global__ void __launch_bounds__(kThreads, FusedMinBlocks<S>::value)
   tile_flux_sums<S>(row_ptr, col, w, n_half, q, n, q, n, r0, vec, smem, acc);
   int bad = 0;
   if (t < kTileRows && i < n)
-    bad = update_node(get8(reinterpret_cast<C*>(smem), kTileRows, t), acc,
-                      nc, old, fac, static_cast<const S*>(nullptr), n, i,
-                      out, n, i);
-  add_block_count(bad, invalid);
+    bad = update_node<S, RES>(get8(reinterpret_cast<C*>(smem), kTileRows, t),
+                              acc, nc, old, fac,
+                              static_cast<const S*>(nullptr), n, i, out,
+                              res, n, i);
+  add_block_count(bad, total);
 }
 
 template <typename S>
 int launch_fused(const void* row_ptr, const void* col, const void* w,
                  int64_t n_half, const void* q, const void* old,
-                 const void* fac, const void* nc, void* out, void* invalid,
-                 int64_t n, cudaStream_t stream) {
+                 const void* fac, const void* nc, void* out, void* res,
+                 void* total, int64_t n, cudaStream_t stream) {
   constexpr size_t smem = tile_shared_bytes<S, kTileRows>();
   static_assert(smem <= 48 * 1024, "more shared memory than a launch gets");
   const int64_t blocks = (n + kTileRows - 1) / kTileRows;
-  fused_stage_kernel<S><<<static_cast<unsigned>(blocks), kThreads, smem,
-                          stream>>>(
+  auto* kernel = res != nullptr ? fused_stage_kernel<S, true>
+                                : fused_stage_kernel<S, false>;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const int*>(row_ptr), static_cast<const int*>(col),
       static_cast<const S*>(w), n_half, static_cast<const S*>(q),
       static_cast<const S*>(old), static_cast<const S*>(fac),
-      static_cast<const S*>(nc), static_cast<S*>(out),
-      static_cast<int*>(invalid), n, rows_take_vectors<S>(q, n));
+      static_cast<const S*>(nc), static_cast<S*>(out), static_cast<S*>(res),
+      static_cast<long long*>(total), n, rows_take_vectors<S>(q, n));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -126,19 +133,19 @@ int launch_fused(const void* row_ptr, const void* col, const void* w,
 // Returns the cudaError_t of the launch (0 = success), or
 // cudaErrorInvalidValue for an unknown dtype code. dtype: 0 float32, 1
 // float64, 2 bfloat16 (the storage type of w, q, old, fac, nc and out).
-// q, old, out (5, n); fac (n); nc (11, n); w (4, n_half); invalid: one
-// int32, zeroed by the caller, to which the kernel adds.
+// q, old, out (5, n); fac (n); nc (11, n); w (4, n_half); res (5, n) or
+// null; total: one int64 to which the kernel adds the count.
 extern "C" int mgcfd_fused_stage(int64_t dtype, const void* row_ptr,
                                  const void* col, const void* w,
                                  int64_t n_half, const void* q,
                                  const void* old, const void* fac,
-                                 const void* nc, void* out, void* invalid,
-                                 int64_t n, void* stream) {
+                                 const void* nc, void* out, void* res,
+                                 void* total, int64_t n, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return mgcfd::dispatch_dtype(dtype, [&](auto tag) {
     using S = decltype(tag);
     if (n == 0) return 0;
     return mgcfd::launch_fused<S>(row_ptr, col, w, n_half, q, old, fac, nc,
-                                  out, invalid, n, s);
+                                  out, res, total, n, s);
   });
 }

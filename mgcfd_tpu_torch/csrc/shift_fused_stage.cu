@@ -6,11 +6,13 @@
 // (shift_common.cuh), plus the dense boundary + wall flux from the
 // aggregated normals nc (11, n) (_bw_flux :357), plus the caller's spill
 // flux when there is one, then out = old + fac * flux, and the count of
-// NaN, Inf, rho < 0 and E < 0 into one int32. The sums keep the TPU
-// kernel's order: span by span in plan order (acc + val_d(i)) -
-// val_d(i - d), then + boundary/wall, then + spill. The count is reduced
-// per block and added with one integer atomicAdd per block
-// (csr_common.cuh), so it is deterministic.
+// NaN, Inf, rho < 0 and E < 0. The sums keep the TPU kernel's order: span
+// by span in plan order (acc + val_d(i)) - val_d(i - d), then +
+// boundary/wall, then + spill. The count is reduced per block and added
+// with one integer atomicAdd per block (csr_common.cuh) into the caller's
+// int64 total, so it is deterministic. The epilogue is fused_stage.cu's:
+// the residual res = out - old from the stored values (the last RK
+// stage).
 //
 // Bound on the H100 (3.35 TB/s): bytes. Level 0 of the box flagship at
 // fp32 moves the state (6.1 MB), the span weights (3 spans, 14.6 MB), old
@@ -113,7 +115,7 @@ __device__ __forceinline__ void edge_at(const State8<T>& a,
   edge_value<S, false>(a, b, w, n, j < n ? j : -1, v);
 }
 
-template <typename S>
+template <typename S, bool RES>
 __global__ void __launch_bounds__(kThreads, ShiftMinBlocks<S>::value)
     shift_fused_stage_kernel(SpanTiles sp, const S* __restrict__ w,
                              const S* __restrict__ q,
@@ -121,8 +123,8 @@ __global__ void __launch_bounds__(kThreads, ShiftMinBlocks<S>::value)
                              const S* __restrict__ fac,
                              const S* __restrict__ nc,
                              const S* __restrict__ spill,
-                             S* __restrict__ out, int* __restrict__ invalid,
-                             int64_t n) {
+                             S* __restrict__ out, S* __restrict__ res,
+                             long long* __restrict__ total, int64_t n) {
   using C = compute_t<S>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = static_cast<int>(sp.halo);
@@ -205,32 +207,35 @@ __global__ void __launch_bounds__(kThreads, ShiftMinBlocks<S>::value)
       for (int c = 0; c < 5; ++c) acc[c] = (acc[c] + a[c]) - b[c];
     }
     if (own)
-      bad += update_node(node_i(), acc, nc, old, fac, spill, n, i, out, n,
-                         i);
+      bad += update_node<S, RES>(node_i(), acc, nc, old, fac, spill, n, i,
+                                 out, res, n, i);
     __syncthreads();  // the window and span values are read
   }
-  add_block_count(bad, invalid);
+  add_block_count(bad, total);
 }
 
 template <typename S>
 int launch_shift_fused(const SpanTiles& sp, const void* w, const void* q,
                        const void* old, const void* fac, const void* nc,
-                       const void* spill, void* out, void* invalid,
-                       int64_t n, cudaStream_t stream) {
+                       const void* spill, void* out, void* res,
+                       void* total, int64_t n, cudaStream_t stream) {
   const size_t smem = shared_bytes<compute_t<S>>(static_cast<int>(sp.halo));
   const int64_t blocks =
       sp.pencils * ((sp.steps + sp.chunk - 1) / sp.chunk);
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  static SharedGrant granted;
-  const int rc = allow_shared(shift_fused_stage_kernel<S>,
-                              shared_bytes<compute_t<S>>(kMaxHalo), granted);
+  // each instantiation is raised once per device (window.cuh SharedGrant)
+  static SharedGrant granted[2];
+  auto* kernel = res != nullptr ? shift_fused_stage_kernel<S, true>
+                                : shift_fused_stage_kernel<S, false>;
+  const int rc = allow_shared(kernel, shared_bytes<compute_t<S>>(kMaxHalo),
+                              granted[res != nullptr]);
   if (rc != 0) return rc;
-  shift_fused_stage_kernel<S>
-      <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
           sp, static_cast<const S*>(w), static_cast<const S*>(q),
           static_cast<const S*>(old), static_cast<const S*>(fac),
           static_cast<const S*>(nc), static_cast<const S*>(spill),
-          static_cast<S*>(out), static_cast<int*>(invalid), n);
+          static_cast<S*>(out), static_cast<S*>(res),
+          static_cast<long long*>(total), n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -276,14 +281,14 @@ inline int make_span_tiles(const int64_t* deltas, const int64_t* kinds,
 // marched, at most one, 2 direct); halo: H, a multiple of 8 up to 128, at
 // least every halo span; steps_per_chunk: M >= 1. Device pointers: w
 // (num_deltas, 4, n), q, old, out (5, n), fac (n), nc (11, n), spill (5,
-// n) or null, and invalid: one int32, zeroed by the caller, to which the
-// kernel adds.
+// n) or null, res (5, n) or null, and total: one int64 to which the
+// kernel adds the count.
 extern "C" int mgcfd_shift_fused_stage(
     int64_t dtype, const int64_t* deltas, const int64_t* kinds,
     int64_t num_deltas, int64_t halo, int64_t steps_per_chunk,
     const void* w, const void* q, const void* old, const void* fac,
-    const void* nc, const void* spill, void* out, void* invalid, int64_t n,
-    void* stream) {
+    const void* nc, const void* spill, void* out, void* res, void* total,
+    int64_t n, void* stream) {
   mgcfd::SpanTiles sp;
   if (mgcfd::make_span_tiles(deltas, kinds, num_deltas, halo,
                              steps_per_chunk, n, &sp) != 0)
@@ -295,6 +300,6 @@ extern "C" int mgcfd_shift_fused_stage(
     sp.vec = mgcfd::rows_take_vectors<S>(q, n) &&
              sp.stride % mgcfd::Vec<S>::width == 0;
     return mgcfd::launch_shift_fused<S>(sp, w, q, old, fac, nc, spill, out,
-                                        invalid, n, s);
+                                        res, total, n, s);
   });
 }

@@ -209,15 +209,19 @@ __device__ __forceinline__ void async_wait_all() {
 
 // node i's update from its internal flux acc: out = old + fac * ((acc +
 // boundary/wall) [+ spill]), in the compute type, rounded once on store;
-// returns the invalid count of the five new values
+// returns the invalid count of the five new values. With RES (the last RK
+// stage's epilogue) it also stores the residual res = out - old, from the
+// stored value: to_storage(to_compute(out) - to_compute(old)), the
+// rounding of the eager q - old. A template flag, not a test of res, so
+// that the other stages run the update as it was before the epilogue.
 // nc, old, fac and spill are read at column ii of rows of stride nn (the
 // device arrays: nn = n, ii = i; a staged copy: its own stride and column)
-template <typename S, typename C = compute_t<S>>
+template <typename S, bool RES, typename C = compute_t<S>>
 __device__ __forceinline__ int update_node(
     const State8<C>& qi, const C acc[5], const S* __restrict__ nc,
     const S* __restrict__ old, const S* __restrict__ fac,
     const S* __restrict__ spill, int64_t nn, int64_t ii,
-    S* __restrict__ out, int64_t n, int64_t i) {
+    S* __restrict__ out, S* __restrict__ res, int64_t n, int64_t i) {
   C bw[5];
   bw_flux(qi, nc, nn, ii, bw);
   const C f = to_compute(fac[ii]);
@@ -227,6 +231,9 @@ __device__ __forceinline__ int update_node(
     if (spill != nullptr) a = a + to_compute(spill[c * nn + ii]);
     const C qn = to_compute(old[c * nn + ii]) + f * a;
     out[c * n + i] = to_storage<S>(qn);
+    if constexpr (RES)
+      res[c * n + i] = to_storage<S>(sub_rn(
+          to_compute(to_storage<S>(qn)), to_compute(old[c * nn + ii])));
     bad += invalid_value(c, qn);
   }
   return bad;

@@ -41,20 +41,22 @@ _I = ctypes.c_int64
 # flags and the dtype code as c_int64); every entry point returns its
 # cudaError_t
 _SIGNATURES = {
-    "mgcfd_edge_csr": [_I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P],
-    "mgcfd_fused_stage": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
-                          _P],
+    "mgcfd_edge_csr": [_I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P,
+                       _P, _P],
+    "mgcfd_fused_stage": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _P],
     "mgcfd_shift_flux": [_I, _I, _P, _I, _P, _P, _P, _I, _P],
     "mgcfd_shift_flux_at": [_I, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P],
     "mgcfd_shift_flux_shape": [_I, _I, _I, _I, _P],
-    "mgcfd_wsum_at": [_I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P],
+    "mgcfd_wsum_at": [_I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P,
+                      _P, _P],
     "mgcfd_wsum_shape": [_I, _I, _I, _P],
     "mgcfd_rw_at": [_I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P],
     "mgcfd_rw_shape": [_I, _I, _I, _P],
     "mgcfd_flux_at": [_I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P],
     "mgcfd_flux_shape": [_I, _I, _I, _P],
     "mgcfd_shift_fused_stage": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
-                                _P, _P, _P, _P, _I, _P],
+                                _P, _P, _P, _P, _P, _I, _P],
     "mgcfd_step_factor": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P],
 }
 

@@ -24,6 +24,13 @@ space, with the owners its first num_rows columns: the sharded solver's
 [block | separator pool] operand (parallel/sharded.py). The owners' values
 then come as a (5, num_rows) operand of their own (``own``).
 
+In wsum mode the kernel's store carries the MG transfers' updates where
+the caller hands it their operands (wsum_tail): ``keep``, the coarse
+state that rows with no entries store (the restriction's unmapped coarse
+nodes), and ``correct`` = (base, res), the store base + (res - sum) (the
+prolongation's update of the fine state). Each launch that carries one
+adds to EPILOGUES (the counters epilogue.restrict and epilogue.prolong).
+
 The state and weights are float32, float64 or bfloat16. bfloat16 is a
 storage format, as in the TPU kernel's bf16 branch
 (flux_window.py:254-296): the kernel and its plain version load bf16,
@@ -73,6 +80,10 @@ FLUX_MID_LEVEL = 65536
 # a wsum shape's name: how its threads load a row's entries
 WSUM_LOADS = {PLAIN: "plain", CHUNKED: "chunked", BATCHED: "batched"}
 _MIN_WEIGHT_ROWS = {"flux": 4, "rw": 3, "wsum": 1}
+# kernel launches that carried each of wsum mode's epilogues: the
+# restriction's and the prolongation's updates; kernels/__init__.py
+# reports them as epilogue.<name>
+EPILOGUES = {"restrict": 0, "prolong": 0}
 
 
 @dataclasses.dataclass
@@ -210,15 +221,32 @@ def flux_math(qo, qn, w0, w1, w2, wt):
 
 
 def edge_csr_plain(mode: str, csr: DeviceCSR, x: torch.Tensor,
-                   own: torch.Tensor | None = None):
+                   own: torch.Tensor | None = None, keep=None,
+                   correct=None):
     """What the kernel computes, as gathers plus one index_add_: per entry
     h of row i with neighbour j (owner values from `own` when given, else
     from x's first columns),
       flux  out[:, i] += flux_math(q_i, q_j, w[0:3, h], w[3, h])
       rw    out[:, i] += q_i + q_j + w0 + w1 + w2
       wsum  out[:, i] += w[0, h] * x[:, j],
-    in compute_dtype(x.dtype), rounded once to x.dtype."""
-    return row_sums(mode, csr, x, own).to(x.dtype)
+    in compute_dtype(x.dtype), rounded once to x.dtype; in wsum mode then
+    the epilogues of wsum_tail."""
+    return wsum_tail(csr, row_sums(mode, csr, x, own).to(x.dtype), keep,
+                     correct)
+
+
+def wsum_tail(csr: DeviceCSR, out, keep=None, correct=None):
+    """wsum mode's epilogues on the rounded sums out (csrc/edge_csr.cu
+    WsumTail): the rows with no entries take keep's columns; correct =
+    (base, res) gives base + (res - out), each operation rounded to the
+    storage dtype as the kernel rounds it."""
+    if keep is not None:
+        empty = csr.row_ptr[1:] == csr.row_ptr[:-1]
+        out = torch.where(empty[None], keep, out)
+    if correct is not None:
+        base, res = correct
+        out = base + (res - out)
+    return out
 
 
 def row_sums(mode: str, csr: DeviceCSR, x: torch.Tensor,
@@ -273,6 +301,36 @@ def check_operands(csr: DeviceCSR, x: torch.Tensor, mode: str,
         raise ValueError(f"edge_csr: unsupported device {x.device}")
 
 
+def check_tail(csr: DeviceCSR, x: torch.Tensor, mode: str, keep,
+               correct) -> None:
+    """Raise on epilogue operands the kernel does not take: wsum mode
+    only, one of keep and correct, each a contiguous (5, num_rows)
+    operand like x."""
+    if keep is None and correct is None:
+        return
+    if mode != "wsum" or (keep is not None and correct is not None):
+        raise ValueError("edge_csr: keep or correct, not both, in wsum "
+                         "mode only")
+    for t in (keep,) if keep is not None else tuple(correct):
+        if (tuple(t.shape) != (5, csr.num_rows) or t.dtype != x.dtype
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"edge_csr wsum: an epilogue operand must be "
+                             f"a contiguous (5, {csr.num_rows}) {x.dtype} "
+                             f"tensor on {x.device}")
+
+
+def pointer(t):
+    """A tensor's device address, or None (NULL) for an operand left
+    out."""
+    return None if t is None else t.data_ptr()
+
+
+def tail_pointers(keep, correct) -> tuple:
+    """The C entry points' keep, base and res."""
+    base, res = correct if correct is not None else (None, None)
+    return pointer(keep), pointer(base), pointer(res)
+
+
 class EdgeCSR:
     """The edge_csr kernel in one mode, for one role on the path."""
 
@@ -292,18 +350,25 @@ class EdgeCSR:
         names = RW_SHAPES if self.mode == "rw" else FLUX_SHAPES
         return f"{self.name}.{names[shape]}"
 
-    def _count(self, counter: str) -> None:
+    def _count(self, counter: str, keep=None, correct=None) -> None:
         self.launches += 1
         self.by_shape[counter] = self.by_shape.get(counter, 0) + 1
+        if keep is not None:
+            EPILOGUES["restrict"] += 1
+        if correct is not None:
+            EPILOGUES["prolong"] += 1
 
     def __call__(self, csr: DeviceCSR, x: torch.Tensor,
-                 own: torch.Tensor | None = None) -> torch.Tensor:
+                 own: torch.Tensor | None = None, keep=None,
+                 correct=None) -> torch.Tensor:
         """(5, num_cols) -> (5, num_rows). own: with a neighbour space
         wider than the owners' (flux and rw modes), the owners' (5,
-        num_rows) values, equal to x[:, :num_rows]."""
+        num_rows) values, equal to x[:, :num_rows]. keep, correct: wsum
+        mode's epilogues (wsum_tail), (5, num_rows) operands."""
         check_operands(csr, x, self.mode, own)
+        check_tail(csr, x, self.mode, keep, correct)
         if not _on_card(x):
-            return edge_csr_plain(self.mode, csr, x, own)
+            return edge_csr_plain(self.mode, csr, x, own, keep, correct)
         out = torch.empty((5, csr.num_rows), dtype=x.dtype, device=x.device)
         x_own = 0 if self.mode == "wsum" else \
             (x if own is None else own).data_ptr()
@@ -311,23 +376,24 @@ class EdgeCSR:
             build.dtype_code(x), MODES[self.mode],
             csr.row_ptr.data_ptr(), csr.col.data_ptr(), csr.w.data_ptr(),
             csr.num_entries, x_own, x.data_ptr(), csr.num_cols,
-            out.data_ptr(), csr.num_rows,
+            out.data_ptr(), csr.num_rows, *tail_pointers(keep, correct),
             torch.cuda.current_stream(x.device).cuda_stream)
         build.check(rc, self.name)
         counter = csr.counters.get(self.name)
         if counter is None:     # the CSR's first launch: ask its shape
             counter = csr.counters[self.name] = self.counter(self.shape(csr))
-        self._count(counter)
+        self._count(counter, keep, correct)
         return out
 
     def at(self, csr: DeviceCSR, x: torch.Tensor, shape,
-           own: torch.Tensor | None = None):
+           own: torch.Tensor | None = None, keep=None, correct=None):
         """wsum mode at a WsumShape, rw mode at an rw shape (RW_ROW, ...)
         or flux mode at a flux shape (FLUX_ROW, ...), for timing and
-        checking shapes; own as in __call__."""
+        checking shapes; own, keep and correct as in __call__."""
         check_operands(csr, x, self.mode, own)
+        check_tail(csr, x, self.mode, keep, correct)
         if not _on_card(x):
-            return edge_csr_plain(self.mode, csr, x, own)
+            return edge_csr_plain(self.mode, csr, x, own, keep, correct)
         out = torch.empty((5, csr.num_rows), dtype=x.dtype, device=x.device)
         lib, stream = build.library(), \
             torch.cuda.current_stream(x.device).cuda_stream
@@ -336,7 +402,7 @@ class EdgeCSR:
                 build.dtype_code(x), int(shape.split), shape.loads,
                 csr.row_ptr.data_ptr(), csr.col.data_ptr(), csr.w.data_ptr(),
                 csr.num_entries, x.data_ptr(), csr.num_cols, out.data_ptr(),
-                csr.num_rows, stream)
+                csr.num_rows, *tail_pointers(keep, correct), stream)
         else:
             fn = lib.mgcfd_rw_at if self.mode == "rw" else lib.mgcfd_flux_at
             rc = fn(build.dtype_code(x), shape, csr.row_ptr.data_ptr(),
@@ -344,7 +410,7 @@ class EdgeCSR:
                     (x if own is None else own).data_ptr(), x.data_ptr(),
                     csr.num_cols, out.data_ptr(), csr.num_rows, stream)
         build.check(rc, self.name)
-        self._count(self.counter(shape))
+        self._count(self.counter(shape), keep, correct)
         return out
 
     def shape(self, csr: DeviceCSR):

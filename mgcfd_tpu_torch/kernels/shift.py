@@ -20,7 +20,10 @@ wrapper instance with its own launch count (``launches``): ``flux``,
 
 At bfloat16 (flux_shift.py:163-201 and :397-431) the kernels and their
 plain versions load bf16, compute in float32 and round once on store;
-the fused stage's invalid count is taken on the float32 values.
+the fused stage's invalid count is taken on the float32 values. The fused
+stage adds its count into an int64 counter and carries fused_stage's
+epilogues (kernels/fused_stage.py stage_outputs): the count into the
+caller's counter and the residual.
 """
 from __future__ import annotations
 
@@ -33,8 +36,9 @@ import torch
 from ..prep.shift import ShiftPlan
 from . import build, edge_csr
 from .edge_csr import (FULL_LEVEL, STORAGE_DTYPES, THIN_BELOW, complete8,
-                       compute_dtype, flux_math)
-from .fused_stage import bw_flux, invalid_count
+                       compute_dtype, flux_math, pointer)
+from .fused_stage import (bw_flux, check_count, count_epilogues,
+                          new_count, stage_outputs)
 
 MAX_SPANS = 16   # kMaxSpans in csrc/shift_common.cuh
 MODES = {"flux": 0, "rw": 1}
@@ -198,14 +202,15 @@ def span_sums(mode: str, sh: DeviceShift, q):
     return acc
 
 
-def shift_fused_stage_plain(sh: DeviceShift, nc, q, old, fac, spill=None):
-    """What the fused kernel computes: (q_next (5, N), invalid count)."""
+def shift_fused_stage_plain(sh: DeviceShift, nc, q, old, fac, spill=None,
+                            count=None, residual: bool = False):
+    """What the fused kernel computes, as stage_outputs gives it."""
     c = compute_dtype(q.dtype)
     acc = span_sums("flux", sh, q) + bw_flux(complete8(q.to(c)), nc.to(c))
     if spill is not None:
         acc = acc + spill.to(c)
     qnew = old.to(c) + fac.to(c) * acc
-    return qnew.to(q.dtype), invalid_count(qnew)
+    return stage_outputs(qnew, old, count, residual)
 
 
 def _check(sh: DeviceShift, q, name: str) -> None:
@@ -286,10 +291,12 @@ class ShiftFusedStage:
         self.name = name
         self.launches = 0
 
-    def __call__(self, sh: DeviceShift, nc, q, old, fac, spill=None):
+    def __call__(self, sh: DeviceShift, nc, q, old, fac, spill=None,
+                 count=None, residual: bool = False):
         """q, old: (5, N); nc: (11, N); fac: (N,) = step factor /
         (RK + 1 - j); spill: (5, N) flux of the plan's spill edges, or
-        None. Returns (q_next, invalid count as a 0-d int32)."""
+        None; count and residual as fused_stage's. Returns (q_next,
+        count), with residual also q_next - old."""
         _check(sh, q, self.name)
         n = sh.num_nodes
         operands = [("old", old, (5, n)), ("nc", nc, (11, n)),
@@ -301,23 +308,26 @@ class ShiftFusedStage:
                     t.device != q.device or not t.is_contiguous():
                 raise ValueError(f"{self.name}: {what} must be a contiguous "
                                  f"{shape} {q.dtype} tensor on {q.device}")
+        check_count(count, q, self.name)
         if not edge_csr._on_card(q):
-            return shift_fused_stage_plain(sh, nc, q, old, fac, spill)
+            return shift_fused_stage_plain(sh, nc, q, old, fac, spill, count,
+                                           residual)
         out = torch.empty_like(q)
-        invalid = torch.zeros(1, dtype=torch.int32, device=q.device)
+        res = torch.empty_like(q) if residual else None
+        total = count if count is not None else new_count(q.device)
         deltas, sched = _c_int64s(sh.deltas), sh.schedule
         kinds = _c_int64s(sched.kinds)
         rc = build.library().mgcfd_shift_fused_stage(
             build.dtype_code(q), ctypes.addressof(deltas),
             ctypes.addressof(kinds), len(sh.deltas), sched.halo,
             sched.chunk, sh.w.data_ptr(), q.data_ptr(), old.data_ptr(),
-            fac.data_ptr(), nc.data_ptr(),
-            None if spill is None else spill.data_ptr(), out.data_ptr(),
-            invalid.data_ptr(), n,
+            fac.data_ptr(), nc.data_ptr(), pointer(spill), out.data_ptr(),
+            pointer(res), total.data_ptr(), n,
             torch.cuda.current_stream(q.device).cuda_stream)
         build.check(rc, self.name)
         self.launches += 1
-        return out, invalid[0]
+        count_epilogues(count, residual)
+        return (out, total, res) if residual else (out, total)
 
 
 flux = ShiftFlux("shift.flux", "flux")

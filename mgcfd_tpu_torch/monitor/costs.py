@@ -65,10 +65,10 @@ def edge_csr_cost(mode: str, csr, sz: int):
 
 
 def fused_stage_cost(csr, sz: int):
-    """fused_stage: q, old, fac and nc in; the new state and the count
-    out."""
+    """fused_stage: q, old, fac and nc in; the new state out and the
+    count added into an int64."""
     n = csr.num_rows
-    return (csr_bytes(csr, 4, sz) + sz * n * (5 + 5 + 1 + NC_ROWS + 5) + 4,
+    return (csr_bytes(csr, 4, sz) + sz * n * (5 + 5 + 1 + NC_ROWS + 5) + 8,
             FLUX_OPS_PER_ENTRY * csr.num_entries
             + (FLUX_OPS_PER_ROW + FUSED_EXTRA_OPS_PER_ROW) * n)
 
@@ -85,9 +85,23 @@ def shift_cost(mode: str, sh, sz: int):
 
 def shift_fused_stage_cost(sh, sz: int):
     n, d = sh.num_nodes, len(sh.deltas)
-    return (sz * n * (5 + 4 * d + 5 + 1 + NC_ROWS + 5) + 4,
+    return (sz * n * (5 + 4 * d + 5 + 1 + NC_ROWS + 5) + 8,
             (SHIFT_FLUX_OPS_PER_SPAN_ROW * d + FLUX_OPS_PER_ROW
              + FUSED_EXTRA_OPS_PER_ROW) * n)
+
+
+def wsum_cost(csr, sz: int, keep: bool = False, correct: bool = False):
+    """edge_csr in wsum mode with its epilogues: keep reads the kept
+    state on the rows with no entries; correct reads the fine state and
+    residual and takes two operations an element."""
+    nbytes, ops = edge_csr_cost("wsum", csr, sz)
+    if keep:
+        empty = int((csr.row_ptr[1:] == csr.row_ptr[:-1]).sum())
+        nbytes += sz * 5 * empty
+    if correct:
+        nbytes += sz * 10 * csr.num_rows
+        ops += 10 * csr.num_rows
+    return nbytes, ops
 
 
 def step_factor_cost(n: int, sz: int, legacy: bool = False):
@@ -178,15 +192,13 @@ def function_cost(function: str, levels, level: int, accumulate: str,
     coarse = levels[level + 1].num_nodes
     if function == "restrict":
         if lvl.restrict_csr is not None:
-            nbytes, ops = edge_csr_cost("wsum", lvl.restrict_csr, sz)
-            return nbytes + sz * 5 * coarse + coarse, ops
+            return wsum_cost(lvl.restrict_csr, sz, keep=True)
         m = int(lvl.mg_mapping.shape[0])
         return (sz * 5 * (n + 2 * coarse) + 8 * m,
                 5 * m + 6 * coarse)
     if function == "prolong":
         if lvl.prolong_csr is not None:
-            nbytes, ops = edge_csr_cost("wsum", lvl.prolong_csr, sz)
-            return nbytes + sz * 10 * n, ops + 10 * n
+            return wsum_cost(lvl.prolong_csr, sz, correct=True)
         e = int(lvl.edge_a.shape[0])
         return (sz * 5 * (coarse + 3 * n) + 8 * n + sz * 3 * (n + coarse)
                 + 16 * e,

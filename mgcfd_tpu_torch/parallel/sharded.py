@@ -426,7 +426,8 @@ class ShardedSolver(MGCFDSolver):
 
     def _prolong(self, i: int, res_c, res_f, vars_f):
         """vars_f += res_f - the interpolated coarse residual, sharded level
-        i from level i + 1's residuals."""
+        i from level i + 1's residuals; on the kernel paths the wsum
+        kernel's store makes the update (its epilogue)."""
         sh = self.shards[i]
         if i + 1 < self.S:       # the coarse blocks, gathered, in raw order
             allb = self.comm.all_gather(res_c)                # (P, 5, Bc)
@@ -437,8 +438,8 @@ class ShardedSolver(MGCFDSolver):
             varmajor = self._tstate
         if self._kernels:
             rc = res_c if varmajor else res_c.T
-            return vars_f + (res_f - edge_csr.prolong(sh.dev.prolong_csr,
-                                                      rc.contiguous()))
+            return edge_csr.prolong(sh.dev.prolong_csr, rc.contiguous(),
+                                    correct=(vars_f, res_f))
         c = sh.c
         rc = res_c.T if varmajor else res_c                   # (Nc, 5)
         r_a1, r_b1 = rc[c["pro_a1"]], rc[c["pro_b1"]]

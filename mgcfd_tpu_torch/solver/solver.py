@@ -123,6 +123,7 @@ class DeviceLevel:
     spill: Optional[tuple] = None          # 'shift': (a, b, w) tensors
     # MG transfers through the kernels ('window', 'pallas')
     restrict_csr: Optional[DeviceCSR] = None   # this level -> next
+    # the sharded solver's block levels: the coarse nodes with a child
     restrict_mapped: Optional[torch.Tensor] = None
     prolong_csr: Optional[DeviceCSR] = None    # next level -> this
 
@@ -280,13 +281,14 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
         for i in range(len(levels) - 1):
             fine, coarse = levels[i], levels[i + 1]
             sizes = np.asarray([fine.num_nodes, coarse.num_nodes])
-            plan, mapped = cached_plan(
+            # its `mapped` mask is the CSR's rows with entries, which the
+            # kernel's store reads (apply_restrict)
+            plan, _ = cached_plan(
                 cache, "torch-restrict", (fine.mg_mapping, sizes),
                 lambda f=fine, c=coarse: build_restrict_csr(
                     f.mg_mapping, f.num_nodes, c.num_nodes))
             dlevels[i].restrict_csr = upload(lambda: DeviceCSR.from_plan(
                 plan, device, dtype))
-            dlevels[i].restrict_mapped = put(mapped, None)
             prolong = cached_plan(
                 cache, "torch-prolong",
                 (fine.edge_a, fine.edge_b, fine.coords, coarse.coords,
@@ -459,40 +461,55 @@ def t_stage_factors(lvl: DeviceLevel, q, legacy_step: bool):
                                            legacy_step, lvl.step)
 
 
+def _new_count(tag: int, device):
+    """A visit's invalid count where its caller keeps none: an int64
+    zero."""
+    with kscope("invalid_count", tag):
+        return torch.zeros((), dtype=torch.int64, device=device)
+
+
 def _visit_window(lvl: DeviceLevel, q, config: SolverConfig,
-                  legacy_step: bool, tag: int):
+                  legacy_step: bool, tag: int, count=None):
     """The kernel-path smoothing pass on a (5, N) state: ONE fused_stage
     launch per RK stage covers flux, boundary/wall, time step and invalid
-    count (its device time lands on the flux range, as in mgcfd_tpu); the
+    count (its device time lands on the flux range, as in mgcfd_tpu), and
+    the last stage's launch also stores the residual (its epilogue); the
     step factor stays outside (its global min is a cross-block
     reduction): one step_factor call gives every stage's factor. With
     fuse_window_stage=False each stage is t_compute_fluxes, the time step
-    and the invalid count instead (mgcfd_tpu's _visit_transposed). The rw
-    twin's kernel runs after each stage and its result is discarded."""
+    and the invalid count instead (mgcfd_tpu's _visit_transposed), and the
+    residual an eager q - old. The rw twin's kernel runs after each stage
+    and its result is discarded. The invalid count is added into count,
+    an int64 counter (the cycle's; a new one where it is None): by the
+    fused stages' kernels, else eagerly. Returns (q, residual, count)."""
     fused = config.fuse_window_stage is not False
     old = q
     with kscope("compute_step", tag):
         fac = t_stage_factors(lvl, q, legacy_step)
-    with kscope("invalid_count", tag):
-        invalid = torch.zeros((), dtype=torch.int64, device=q.device)
+    if count is None:
+        count = _new_count(tag, q.device)
     for j in range(RK):
         if config.flux_cripple:
             _crippled_twin(lvl, q.T)
         if fused:
             with kscope("flux", tag):
-                q, inv = fused_stage(lvl.csr, lvl.nc, q, old, fac[j])
+                out = fused_stage(lvl.csr, lvl.nc, q, old, fac[j], count,
+                                  residual=j == RK - 1)
+            q = out[0]
         else:
             with kscope("flux", tag):
                 flux = t_compute_fluxes(lvl, q, config)
             with kscope("time_step", tag):
                 q = old + fac[j][None] * flux
-        with kscope("invalid_count", tag):
-            invalid = invalid + (inv if fused else invalid_count(q))
+            with kscope("invalid_count", tag):
+                count.add_(invalid_count(q))
         if config.include_indirect_rw:
             with kscope("indirect_rw", tag):
                 t_indirect_rw(lvl, q, config)
+    if fused:
+        return q, out[2], count
     with kscope("residual", tag):
-        return q, q - old, invalid
+        return q, q - old, count
 
 
 def t_compute_fluxes(lvl: DeviceLevel, q, config: SolverConfig):
@@ -557,20 +574,23 @@ def _span_rw(lvl: DeviceLevel, q, kernels: bool):
 
 
 def _visit_span(lvl: DeviceLevel, q, config: SolverConfig,
-                legacy_step: bool, tag: int):
+                legacy_step: bool, tag: int, count=None):
     """The smoothing pass of the span paths on a (5, N) state
     (mgcfd_tpu's _visit_transposed). 'pallas' with fuse_stage: ONE
     shift.fused_stage launch per RK stage, the spill edges' flux (from
-    the edge_csr flux kernel) entering as its operand. Otherwise each
-    stage is the span flux, plus the dense boundary/wall flux, then the
-    time step and the invalid count. One step_factor call gives every
-    stage's factor. The rw twin runs after each stage."""
+    the edge_csr flux kernel) entering as its operand, with
+    _visit_window's epilogues (the count into count, the last stage's
+    residual). Otherwise each stage is the span flux, plus the dense
+    boundary/wall flux, then the time step and the invalid count, and the
+    residual an eager q - old. One step_factor call gives every stage's
+    factor. The rw twin runs after each stage. Returns (q, residual,
+    count), as _visit_window."""
     fused = config.accumulate == "pallas" and config.fuse_stage
     old = q
     with kscope("compute_step", tag):
         fac = t_stage_factors(lvl, q, legacy_step)
-    with kscope("invalid_count", tag):
-        invalid = torch.zeros((), dtype=torch.int64, device=q.device)
+    if count is None:
+        count = _new_count(tag, q.device)
     for j in range(RK):
         if config.flux_cripple:
             _crippled_twin(lvl, q.T)
@@ -578,20 +598,23 @@ def _visit_span(lvl: DeviceLevel, q, config: SolverConfig,
             with kscope("flux", tag):
                 spill = (None if lvl.spill_csr is None
                          else edge_csr.flux(lvl.spill_csr, q))
-                q, inv = shift.fused_stage(lvl.shift, lvl.nc, q, old,
-                                           fac[j], spill)
+                out = shift.fused_stage(lvl.shift, lvl.nc, q, old, fac[j],
+                                        spill, count, residual=j == RK - 1)
+            q = out[0]
         else:
             with kscope("flux", tag):
                 flux = t_compute_fluxes(lvl, q, config)
             with kscope("time_step", tag):
                 q = old + fac[j][None] * flux
-        with kscope("invalid_count", tag):
-            invalid = invalid + (inv if fused else invalid_count(q))
+            with kscope("invalid_count", tag):
+                count.add_(invalid_count(q))
         if config.include_indirect_rw:
             with kscope("indirect_rw", tag):
                 t_indirect_rw(lvl, q, config)
+    if fused:
+        return q, out[2], count
     with kscope("residual", tag):
-        return q, q - old, invalid
+        return q, q - old, count
 
 
 # ---------------------------------------------------------------------------
@@ -602,10 +625,10 @@ def apply_restrict(fine: DeviceLevel, coarse: DeviceLevel, vars_f, vars_c,
                    tstate: bool):
     """Restrict the fine variables onto the coarse level (euler3d:547-552);
     unmapped coarse nodes keep their value. Through the kernels where the
-    level has their plan; tstate: the state is (5, N)."""
+    level has their plan, whose store keeps vars_c on the rows with no
+    fine child (its epilogue); tstate: the state is (5, N)."""
     if fine.restrict_csr is not None:
-        mean = edge_csr.restrict(fine.restrict_csr, vars_f)
-        return torch.where(fine.restrict_mapped[None], mean, vars_c)
+        return edge_csr.restrict(fine.restrict_csr, vars_f, keep=vars_c)
     if tstate:
         return apply_restrict(fine, coarse, vars_f.T, vars_c.T,
                               False).T.contiguous()
@@ -615,9 +638,11 @@ def apply_restrict(fine: DeviceLevel, coarse: DeviceLevel, vars_f, vars_c,
 def apply_prolong(fine: DeviceLevel, coarse: DeviceLevel, res_c, res_f,
                   vars_f, tstate: bool):
     """vars_f += res_f - interpolated coarse residual (mg_loops.cpp:
-    678-864, with the a1 -> b2 quirk)."""
+    678-864, with the a1 -> b2 quirk); through the kernels where the level
+    has their plan, the update in the kernel's store (its epilogue)."""
     if fine.prolong_csr is not None:
-        return vars_f + (res_f - edge_csr.prolong(fine.prolong_csr, res_c))
+        return edge_csr.prolong(fine.prolong_csr, res_c,
+                                correct=(vars_f, res_f))
     if tstate:
         return apply_prolong(fine, coarse, res_c.T, res_f.T, vars_f.T,
                              False).T.contiguous()
@@ -638,8 +663,9 @@ class CycleGraph:
     residuals back into them, so one replay advances the buffers by K
     cycles. It also leaves the K RMS values and invalid counts stacked on
     the device. ``launches`` holds the kernel launches one capture
-    recorded, by wrapper and by edge_csr shape; a replay calls no
-    wrapper, so replay() adds them to the counts. The construction is
+    recorded, by wrapper, by edge_csr shape and by epilogue; a replay
+    calls no wrapper, so replay() adds them to the counts. The
+    construction is
     the span mgcfd.capture: the warm-up cycle, until the device has run
     it (mgcfd.capture.warmup), then the capture (mgcfd.capture.graph)."""
 
@@ -781,29 +807,30 @@ class MGCFDSolver:
         legacy = self.dmesh.variant.uses_legacy_step_factor
         variables = self.state["variables"]
         residuals = self.state["residuals"]
-        with kscope("invalid_count", 0):
-            invalid_total = torch.zeros((), dtype=torch.int64,
-                                        device=self.device)
+        # the cycle's invalid count, which the variable-major visits' fused
+        # stages add into in their kernels
+        invalid_total = _new_count(0, self.device)
 
         mode = self.config.accumulate
         tstate = self._tstate
 
         def visit(lev):
-            nonlocal invalid_total
             if mode == "window":
-                v, res, inv = _visit_window(levels[lev], variables[lev],
-                                            self.config, legacy, lev)
+                v, res, _ = _visit_window(levels[lev], variables[lev],
+                                          self.config, legacy, lev,
+                                          invalid_total)
             elif tstate:
-                v, res, inv = _visit_span(levels[lev], variables[lev],
-                                          self.config, legacy, lev)
+                v, res, _ = _visit_span(levels[lev], variables[lev],
+                                        self.config, legacy, lev,
+                                        invalid_total)
             else:
                 v, res, inv = _visit(levels[lev], variables[lev],
                                      self.dmesh.ff_flux, self.config,
                                      legacy, lev)
+                with kscope("invalid_count", lev):
+                    invalid_total.add_(inv)
             variables[lev] = v
             residuals[lev] = res
-            with kscope("invalid_count", lev):
-                invalid_total = invalid_total + inv
             return res
 
         rms = None

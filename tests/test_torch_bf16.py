@@ -166,7 +166,7 @@ def test_shift_fused_stage_bf16_matches_pallas(box_level, with_spill,
         DeviceShift.from_plan(plan, n, "cpu", BF),
         bf(np.concatenate([bdn, wln, wlc])), bf(q[:, :n]), bf(old[:, :n]),
         bf(fac[:n]), None if spill is None else bf(spill[:, :n]))
-    assert got_inv.dtype == torch.int32
+    assert got_inv.dtype == torch.int64
     assert int(got_inv) == int(want_inv)
     assert (int(got_inv) > 5) == plant
     assert_agree(got, from_jax(want[:, :n]))
