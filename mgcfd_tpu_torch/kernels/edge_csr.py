@@ -11,13 +11,12 @@ C entry point chooses the shape for the CSR, and wsum_shape, rw_shape and
 flux_shape below mirror that.
 The wrapper launches the kernel for CUDA tensors and takes the plain
 version only for tensors on the CPU; anything else raises.
-Each role on the solver's path has its own wrapper instance with its own
-launch count (``launches``, a plain int added to at each kernel launch):
-``flux``, ``rw``, ``restrict`` and ``prolong``. Each also counts its
-launches by the shape the C entry point chose (``by_shape``, keyed by
-the counter name ``<wrapper>.<shape>``, e.g. ``edge_csr.rw.tile``); the
-shape is asked of the entry point once per CSR, at the wrapper's first
-launch on it.
+Each role on the solver's path has its own wrapper instance, whose
+launches are counted under its name (kernels/counts.py): ``flux``,
+``rw``, ``restrict`` and ``prolong``. Each launch is also counted under
+the shape the C entry point chose, ``<wrapper>.<shape>`` (e.g.
+``edge_csr.rw.tile``); the shape is asked of the entry point once per
+CSR, at the wrapper's first launch on it.
 
 In flux and rw modes the neighbour space may be wider than the owner
 space, with the owners its first num_rows columns: the sharded solver's
@@ -29,7 +28,7 @@ the caller hands it their operands (wsum_tail): ``keep``, the coarse
 state that rows with no entries store (the restriction's unmapped coarse
 nodes), and ``correct`` = (base, res), the store base + (res - sum) (the
 prolongation's update of the fine state). Each launch that carries one
-adds to EPILOGUES (the counters epilogue.restrict and epilogue.prolong).
+is counted under epilogue.restrict or epilogue.prolong.
 
 The state and weights are float32, float64 or bfloat16. bfloat16 is a
 storage format, as in the TPU kernel's bf16 branch
@@ -47,6 +46,7 @@ import torch
 from ..core.constants import GAMMA, SMOOTHING_COEFFICIENT
 from ..prep.csr import CSRPlan
 from . import build
+from .counts import launched
 
 MODES = {"flux": 0, "rw": 1, "wsum": 2}
 # levels below THIN_BELOW nodes or rows get a thread per (node or row,
@@ -80,10 +80,6 @@ FLUX_MID_LEVEL = 65536
 # a wsum shape's name: how its threads load a row's entries
 WSUM_LOADS = {PLAIN: "plain", CHUNKED: "chunked", BATCHED: "batched"}
 _MIN_WEIGHT_ROWS = {"flux": 4, "rw": 3, "wsum": 1}
-# kernel launches that carried each of wsum mode's epilogues: the
-# restriction's and the prolongation's updates; kernels/__init__.py
-# reports them as epilogue.<name>
-EPILOGUES = {"restrict": 0, "prolong": 0}
 
 
 @dataclasses.dataclass
@@ -337,8 +333,6 @@ class EdgeCSR:
     def __init__(self, name: str, mode: str):
         self.name = name
         self.mode = mode
-        self.launches = 0
-        self.by_shape: dict = {}
 
     def counter(self, shape) -> str:
         """The counter a launch at `shape` (as rw_shape, flux_shape or
@@ -351,12 +345,9 @@ class EdgeCSR:
         return f"{self.name}.{names[shape]}"
 
     def _count(self, counter: str, keep=None, correct=None) -> None:
-        self.launches += 1
-        self.by_shape[counter] = self.by_shape.get(counter, 0) + 1
-        if keep is not None:
-            EPILOGUES["restrict"] += 1
-        if correct is not None:
-            EPILOGUES["prolong"] += 1
+        launched(self.name, counter, epilogues=[
+            name for name, t in (("restrict", keep), ("prolong", correct))
+            if t is not None])
 
     def __call__(self, csr: DeviceCSR, x: torch.Tensor,
                  own: torch.Tensor | None = None, keep=None,

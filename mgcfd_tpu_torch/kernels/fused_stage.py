@@ -15,20 +15,16 @@ once on store, and the invalid count taken on the float32 values.
 Two epilogues, which this kernel and shift.fused_stage share (see
 stage_outputs): the count added into the caller's counter, and, for the
 last RK stage, the residual q_next - old from the stored values. Each
-launch that carries one adds to EPILOGUES (the counters epilogue.invalid
-and epilogue.residual).
+launch that carries one is counted under epilogue.invalid or
+epilogue.residual (stage_epilogues).
 """
 from __future__ import annotations
 
 import torch
 
 from . import build, edge_csr
+from .counts import launched
 from .edge_csr import DeviceCSR, complete8, compute_dtype, pointer
-
-# kernel launches that carried each of the fused stages' epilogues (this
-# kernel's and shift.fused_stage's): the count into the caller's counter,
-# the residual; kernels/__init__.py reports them as epilogue.<name>
-EPILOGUES = {"invalid": 0, "residual": 0}
 
 
 def bw_flux(qo, nc):
@@ -95,12 +91,11 @@ def check_count(count, q, name: str) -> None:
                          f"of one element on {q.device}")
 
 
-def count_epilogues(count, residual: bool) -> None:
-    """A fused stage's launch: the epilogues it carried."""
-    if count is not None:
-        EPILOGUES["invalid"] += 1
-    if residual:
-        EPILOGUES["residual"] += 1
+def stage_epilogues(count, residual: bool) -> list:
+    """The epilogues a fused stage's launch carried: the count into its
+    caller's counter, the residual."""
+    return [name for name, on in (("invalid", count is not None),
+                                  ("residual", residual)) if on]
 
 
 def invalid_count(q):
@@ -112,11 +107,10 @@ def invalid_count(q):
 
 
 class FusedStage:
-    """The fused_stage kernel; ``launches`` counts kernel launches."""
+    """The fused_stage kernel."""
 
     def __init__(self, name: str = "fused_stage"):
         self.name = name
-        self.launches = 0
 
     def __call__(self, csr: DeviceCSR, nc, q, old, fac, count=None,
                  residual: bool = False):
@@ -149,8 +143,7 @@ class FusedStage:
             out.data_ptr(), pointer(res), total.data_ptr(), n,
             torch.cuda.current_stream(q.device).cuda_stream)
         build.check(rc, self.name)
-        self.launches += 1
-        count_epilogues(count, residual)
+        launched(self.name, epilogues=stage_epilogues(count, residual))
         return (out, total, res) if residual else (out, total)
 
 

@@ -15,8 +15,8 @@ fused stage's kernel tiles the nodes and shares their states through
 shared memory; span_schedule below sorts a plan's spans for it. The
 wrappers launch the kernels for CUDA tensors and take the plain versions
 only for tensors on the CPU; anything else raises. Each role has its own
-wrapper instance with its own launch count (``launches``): ``flux``,
-``rw`` and ``fused_stage``.
+wrapper instance, whose launches are counted under its name
+(kernels/counts.py): ``flux``, ``rw`` and ``fused_stage``.
 
 At bfloat16 (flux_shift.py:163-201 and :397-431) the kernels and their
 plain versions load bf16, compute in float32 and round once on store;
@@ -35,10 +35,11 @@ import torch
 
 from ..prep.shift import ShiftPlan
 from . import build, edge_csr
+from .counts import launched
 from .edge_csr import (FULL_LEVEL, STORAGE_DTYPES, THIN_BELOW, complete8,
                        compute_dtype, flux_math, pointer)
-from .fused_stage import (bw_flux, check_count, count_epilogues,
-                          new_count, stage_outputs)
+from .fused_stage import (bw_flux, check_count, new_count, stage_epilogues,
+                          stage_outputs)
 
 MAX_SPANS = 16   # kMaxSpans in csrc/shift_common.cuh
 MODES = {"flux": 0, "rw": 1}
@@ -238,7 +239,6 @@ class ShiftFlux:
     def __init__(self, name: str, mode: str):
         self.name = name
         self.mode = mode
-        self.launches = 0
 
     def __call__(self, sh: DeviceShift, q: torch.Tensor) -> torch.Tensor:
         """(5, N) state -> (5, N) internal flux (or its rw twin), at the
@@ -270,7 +270,7 @@ class ShiftFlux:
                                          MODES[self.mode], int(shape.split),
                                          int(shape.unroll), *operands)
         build.check(rc, self.name)
-        self.launches += 1
+        launched(self.name)
         return out
 
     def shape(self, sh: DeviceShift) -> FluxShape:
@@ -285,11 +285,10 @@ class ShiftFlux:
 
 
 class ShiftFusedStage:
-    """The shift_fused_stage kernel; ``launches`` counts kernel launches."""
+    """The shift_fused_stage kernel."""
 
     def __init__(self, name: str = "shift.fused_stage"):
         self.name = name
-        self.launches = 0
 
     def __call__(self, sh: DeviceShift, nc, q, old, fac, spill=None,
                  count=None, residual: bool = False):
@@ -325,8 +324,7 @@ class ShiftFusedStage:
             pointer(res), total.data_ptr(), n,
             torch.cuda.current_stream(q.device).cuda_stream)
         build.check(rc, self.name)
-        self.launches += 1
-        count_epilogues(count, residual)
+        launched(self.name, epilogues=stage_epilogues(count, residual))
         return (out, total, res) if residual else (out, total)
 
 

@@ -20,6 +20,7 @@ import torch
 from ..core.constants import RK
 from ..ops import tops
 from . import build
+from .counts import launched
 from .edge_csr import compute_dtype
 
 # nodes a block of the kernel's first pass (kStepBlockNodes in
@@ -59,11 +60,10 @@ class StepScratch:
 
 
 class StepFactor:
-    """The step_factor kernel; ``launches`` counts kernel launches."""
+    """The step_factor kernel."""
 
     def __init__(self, name: str = "step_factor"):
         self.name = name
-        self.launches = 0
 
     def __call__(self, q, volumes, cbrt_volumes, legacy: bool,
                  scratch: StepScratch | None = None):
@@ -96,7 +96,7 @@ class StepFactor:
             scratch.arrivals.data_ptr(), fac.data_ptr(), n,
             torch.cuda.current_stream(q.device).cuda_stream)
         build.check(rc, self.name)
-        self.launches += 1 if legacy else 2
+        launched(self.name, n=1 if legacy else 2)
         return fac
 
 

@@ -2,8 +2,9 @@
 sharded.py, which runs one shard_map'd program over a device mesh).
 
 Each rank is a process that owns one shard: row p = rank of the stacked
-partition (parallel/partition.py). A cycle walks the levels as
-MGCFDSolver's does:
+partition (parallel/partition.py). A cycle is MGCFDSolver's own cycle;
+this solver overrides its per-level methods (_visit_level, _restrict,
+_prolong, _rms and the cycle's invalid count) on the sharded levels:
 
   - sharded levels 0..S-1: each rank smooths its node block. A flux
     evaluation gathers the separator pool (one all_gather) into the
@@ -28,7 +29,8 @@ MGCFDSolver's does:
     geometry with its reduce-scatter;
   - replicated levels S..L-1: every rank runs MGCFDSolver's own visits and
     transfers on them (fused_stage on 'window', the span kernels on
-    'pallas'), identically.
+    'pallas'), identically; their invalid counts go into the cycle's
+    counter of the replicated levels, which is not summed over the ranks.
 
 run_batched: under NCCL a batch of K cycles is one CUDA graph
 (solver.CycleGraph), the collectives captured with the kernels. Under
@@ -63,9 +65,7 @@ from ..ops import (cbrt_volumes, compute_step_factor,
 from ..prep.csr import build_prolong_csr
 from ..prep.plancache import cached_plan
 from ..solver.solver import (DTYPES, DeviceLevel, DeviceMesh, MGCFDSolver,
-                             _visit, _visit_span, _visit_window,
-                             apply_prolong, apply_restrict, kscope,
-                             prepare_device_mesh, resolve_accumulate,
+                             kscope, prepare_device_mesh, resolve_accumulate,
                              resolve_device, variable_major)
 from ..utils.checkpoint import latest_checkpoint, load_checkpoint
 from .comm import Comm
@@ -387,7 +387,10 @@ class ShardedSolver(MGCFDSolver):
     # --- transfers across a sharded level ----------------------------------
 
     def _restrict(self, i: int, vars_f, vars_c):
-        """Sharded level i onto level i + 1 (sharded or replicated)."""
+        """Level i onto level i + 1; from a sharded level onto a sharded
+        or a replicated one here."""
+        if i >= self.S:
+            return super()._restrict(i, vars_f, vars_c)
         sh = self.shards[i]
         mapped = sh.dev.restrict_mapped
         if i + 1 < self.S:                    # onto a sharded level
@@ -425,9 +428,12 @@ class ShardedSolver(MGCFDSolver):
         return torch.where(mapped[:, None], mean.T, vars_c).contiguous()
 
     def _prolong(self, i: int, res_c, res_f, vars_f):
-        """vars_f += res_f - the interpolated coarse residual, sharded level
-        i from level i + 1's residuals; on the kernel paths the wsum
-        kernel's store makes the update (its epilogue)."""
+        """vars_f += res_f - the interpolated coarse residual, level i from
+        level i + 1's residuals; on a sharded level here, where on the
+        kernel paths the wsum kernel's store makes the update (its
+        epilogue)."""
+        if i >= self.S:
+            return super()._prolong(i, res_c, res_f, vars_f)
         sh = self.shards[i]
         if i + 1 < self.S:       # the coarse blocks, gathered, in raw order
             allb = self.comm.all_gather(res_c)                # (P, 5, Bc)
@@ -466,76 +472,34 @@ class ShardedSolver(MGCFDSolver):
                            acc_l / safe[:, None])
         return (vars_f + (res_f - wavg.T)).contiguous()
 
-    # --- the cycle ---------------------------------------------------------
+    # --- the cycle: MGCFDSolver.cycle over these levels ---------------------
 
-    def cycle(self):
-        """One V-cycle; returns (level-0 RMS, invalid count over all
-        ranks), device scalars."""
-        levels = self.dmesh.levels
-        L, S = len(levels), self.S
-        variables = self.state["variables"]
-        residuals = self.state["residuals"]
+    def _new_cycle_count(self):
+        """(this rank's block levels' invalid count, the replicated
+        levels' one): only the first is summed over the ranks."""
         with kscope("invalid_count", 0):
-            zero = torch.zeros((), dtype=torch.int64, device=self.device)
-        inv = {"sharded": zero, "replicated": zero}
-        mode = self.config.accumulate
+            blocks = torch.zeros((), dtype=torch.int64, device=self.device)
+        return blocks, super()._new_cycle_count()
 
-        def visit(lev):
-            if lev < S:
-                v, res, n_bad = self._visit_sharded(lev, variables[lev])
-                key = "sharded"
-            else:
-                if mode == "window":
-                    fn = _visit_window
-                elif self._tstate:
-                    fn = _visit_span
-                else:
-                    fn = lambda lv, q, cfg, lg, t: _visit(  # noqa: E731
-                        lv, q, self.dmesh.ff_flux, cfg, lg, t)
-                v, res, n_bad = fn(levels[lev], variables[lev], self.config,
-                                   self.legacy, lev)
-                key = "replicated"
-            variables[lev], residuals[lev] = v, res
-            with kscope("invalid_count", lev):
-                inv[key] = inv[key] + n_bad
-
-        def restrict(lev):
-            with kscope("restrict", lev):
-                if lev < S:
-                    variables[lev + 1] = self._restrict(
-                        lev, variables[lev], variables[lev + 1])
-                else:
-                    variables[lev + 1] = apply_restrict(
-                        levels[lev], levels[lev + 1], variables[lev],
-                        variables[lev + 1], self._tstate)
-
-        rms = None
-        for lev in range(L - 1):
-            visit(lev)
-            if lev == 0:
-                rms = self._rms(residuals[0])
-            restrict(lev)
-        visit(L - 1)
-        if L == 1:
-            rms = self._rms(residuals[0])
-        for lev in range(L - 2, -1, -1):
-            with kscope("prolong", lev):
-                if lev < S:
-                    variables[lev] = self._prolong(
-                        lev, residuals[lev + 1], residuals[lev],
-                        variables[lev])
-                else:
-                    variables[lev] = apply_prolong(
-                        levels[lev], levels[lev + 1], residuals[lev + 1],
-                        residuals[lev], variables[lev], self._tstate)
-            if lev > 0:
-                visit(lev)
+    def _invalid_total(self, count):
+        """The invalid count over all ranks."""
+        blocks, replicated = count
         with kscope("invalid_count", 0):
-            invalid = self.comm.all_reduce(inv["sharded"]) \
-                + inv["replicated"]
-        return rms, invalid
+            return self.comm.all_reduce(blocks) + replicated
+
+    def _visit_level(self, lev: int, q, count):
+        """A sharded level through _visit_sharded, its count into the
+        block levels' counter; a replicated one as MGCFDSolver's."""
+        if lev >= self.S:
+            return super()._visit_level(lev, q, count[1])
+        q, res, n_bad = self._visit_sharded(lev, q)
+        with kscope("invalid_count", lev):
+            count[0].add_(n_bad)
+        return q, res
 
     def _rms(self, res):
+        """The RMS of level 0's residual over the real nodes of every
+        rank."""
         with kscope("rms", 0):
             sq = torch.sum(res * res * self.shards[0].c["node_mask"][None])
             return torch.sqrt(self.comm.all_reduce(sq)

@@ -468,21 +468,21 @@ def _new_count(tag: int, device):
         return torch.zeros((), dtype=torch.int64, device=device)
 
 
-def _visit_window(lvl: DeviceLevel, q, config: SolverConfig,
-                  legacy_step: bool, tag: int, count=None):
-    """The kernel-path smoothing pass on a (5, N) state: ONE fused_stage
-    launch per RK stage covers flux, boundary/wall, time step and invalid
-    count (its device time lands on the flux range, as in mgcfd_tpu), and
-    the last stage's launch also stores the residual (its epilogue); the
-    step factor stays outside (its global min is a cross-block
-    reduction): one step_factor call gives every stage's factor. With
-    fuse_window_stage=False each stage is t_compute_fluxes, the time step
-    and the invalid count instead (mgcfd_tpu's _visit_transposed), and the
-    residual an eager q - old. The rw twin's kernel runs after each stage
-    and its result is discarded. The invalid count is added into count,
-    an int64 counter (the cycle's; a new one where it is None): by the
-    fused stages' kernels, else eagerly. Returns (q, residual, count)."""
-    fused = config.fuse_window_stage is not False
+def _smooth(lvl: DeviceLevel, q, config: SolverConfig, legacy_step: bool,
+            count, tag: int, stage):
+    """The smoothing pass of the variable-major paths on a (5, N) state
+    (mgcfd_tpu's _visit_transposed): one step_factor call gives every RK
+    stage's factor (its global min is a cross-block reduction, so it stays
+    outside the stages). With a fused stage, stage(lvl, q, old, fac,
+    count, residual) is ONE launch per RK stage that covers flux,
+    boundary/wall, time step and invalid count (its device time lands on
+    the flux range, as in mgcfd_tpu), and the last stage's launch also
+    stores the residual (its epilogue). With stage None each RK stage is
+    t_compute_fluxes, the time step and the invalid count, and the
+    residual an eager q - old. The rw twin runs after each stage and its
+    result is discarded. The invalid count is added into count, an int64
+    counter (the cycle's; a new one where it is None): by the fused
+    stages' kernels, else eagerly. Returns (q, residual, count)."""
     old = q
     with kscope("compute_step", tag):
         fac = t_stage_factors(lvl, q, legacy_step)
@@ -491,10 +491,9 @@ def _visit_window(lvl: DeviceLevel, q, config: SolverConfig,
     for j in range(RK):
         if config.flux_cripple:
             _crippled_twin(lvl, q.T)
-        if fused:
+        if stage is not None:
             with kscope("flux", tag):
-                out = fused_stage(lvl.csr, lvl.nc, q, old, fac[j], count,
-                                  residual=j == RK - 1)
+                out = stage(lvl, q, old, fac[j], count, j == RK - 1)
             q = out[0]
         else:
             with kscope("flux", tag):
@@ -506,10 +505,25 @@ def _visit_window(lvl: DeviceLevel, q, config: SolverConfig,
         if config.include_indirect_rw:
             with kscope("indirect_rw", tag):
                 t_indirect_rw(lvl, q, config)
-    if fused:
+    if stage is not None:
         return q, out[2], count
     with kscope("residual", tag):
         return q, q - old, count
+
+
+def _window_stage(lvl: DeviceLevel, q, old, fac, count, residual: bool):
+    """One RK stage of the window path as one fused_stage launch."""
+    return fused_stage(lvl.csr, lvl.nc, q, old, fac, count,
+                       residual=residual)
+
+
+def _visit_window(lvl: DeviceLevel, q, config: SolverConfig,
+                  legacy_step: bool, count, tag: int):
+    """The window path's smoothing pass (_smooth): fused_stage per RK
+    stage, or with fuse_window_stage=False the unfused stages. tag: the
+    level, for kscope; the cycle calls each visit with the level last."""
+    stage = _window_stage if config.fuse_window_stage is not False else None
+    return _smooth(lvl, q, config, legacy_step, count, tag, stage)
 
 
 def t_compute_fluxes(lvl: DeviceLevel, q, config: SolverConfig):
@@ -573,48 +587,24 @@ def _span_rw(lvl: DeviceLevel, q, kernels: bool):
                                   torch.cat([sa, sb]), q.shape[1])
 
 
+def _span_stage(lvl: DeviceLevel, q, old, fac, count, residual: bool):
+    """One RK stage of the 'pallas' path as one shift.fused_stage launch,
+    the spill edges' flux (from the edge_csr flux kernel) entering as its
+    operand."""
+    spill = (None if lvl.spill_csr is None
+             else edge_csr.flux(lvl.spill_csr, q))
+    return shift.fused_stage(lvl.shift, lvl.nc, q, old, fac, spill, count,
+                             residual=residual)
+
+
 def _visit_span(lvl: DeviceLevel, q, config: SolverConfig,
-                legacy_step: bool, tag: int, count=None):
-    """The smoothing pass of the span paths on a (5, N) state
-    (mgcfd_tpu's _visit_transposed). 'pallas' with fuse_stage: ONE
-    shift.fused_stage launch per RK stage, the spill edges' flux (from
-    the edge_csr flux kernel) entering as its operand, with
-    _visit_window's epilogues (the count into count, the last stage's
-    residual). Otherwise each stage is the span flux, plus the dense
-    boundary/wall flux, then the time step and the invalid count, and the
-    residual an eager q - old. One step_factor call gives every stage's
-    factor. The rw twin runs after each stage. Returns (q, residual,
-    count), as _visit_window."""
-    fused = config.accumulate == "pallas" and config.fuse_stage
-    old = q
-    with kscope("compute_step", tag):
-        fac = t_stage_factors(lvl, q, legacy_step)
-    if count is None:
-        count = _new_count(tag, q.device)
-    for j in range(RK):
-        if config.flux_cripple:
-            _crippled_twin(lvl, q.T)
-        if fused:
-            with kscope("flux", tag):
-                spill = (None if lvl.spill_csr is None
-                         else edge_csr.flux(lvl.spill_csr, q))
-                out = shift.fused_stage(lvl.shift, lvl.nc, q, old, fac[j],
-                                        spill, count, residual=j == RK - 1)
-            q = out[0]
-        else:
-            with kscope("flux", tag):
-                flux = t_compute_fluxes(lvl, q, config)
-            with kscope("time_step", tag):
-                q = old + fac[j][None] * flux
-            with kscope("invalid_count", tag):
-                count.add_(invalid_count(q))
-        if config.include_indirect_rw:
-            with kscope("indirect_rw", tag):
-                t_indirect_rw(lvl, q, config)
-    if fused:
-        return q, out[2], count
-    with kscope("residual", tag):
-        return q, q - old, count
+                legacy_step: bool, count, tag: int):
+    """The span paths' smoothing pass (_smooth): shift.fused_stage per RK
+    stage on 'pallas' with fuse_stage, else the unfused stages (the span
+    flux and its spill edges). Arguments as _visit_window's."""
+    stage = (_span_stage if config.accumulate == "pallas" and config.fuse_stage
+             else None)
+    return _smooth(lvl, q, config, legacy_step, count, tag, stage)
 
 
 # ---------------------------------------------------------------------------
@@ -662,12 +652,12 @@ class CycleGraph:
     end of the captured region, copies each level's new variables and
     residuals back into them, so one replay advances the buffers by K
     cycles. It also leaves the K RMS values and invalid counts stacked on
-    the device. ``launches`` holds the kernel launches one capture
-    recorded, by wrapper, by edge_csr shape and by epilogue; a replay
-    calls no wrapper, so replay() adds them to the counts. The
-    construction is
-    the span mgcfd.capture: the warm-up cycle, until the device has run
-    it (mgcfd.capture.warmup), then the capture (mgcfd.capture.graph)."""
+    the device. ``launches`` holds the counters (kernels.COUNTS) of the
+    kernel launches one capture recorded; a replay calls no wrapper, so
+    replay() adds them to the store, and the warm-up's launches are not
+    counted. The construction is the span mgcfd.capture: the warm-up
+    cycle, until the device has run it (mgcfd.capture.warmup), then the
+    capture (mgcfd.capture.graph)."""
 
     @spans.span("mgcfd.capture")
     def __init__(self, solver: "MGCFDSolver", k: int):
@@ -675,7 +665,7 @@ class CycleGraph:
         st = solver.state
         self.variables = [t.clone() for t in st["variables"]]
         self.residuals = [t.clone() for t in st["residuals"]]
-        counts = kernels.launch_counts(shapes=True)
+        counts = kernels.COUNTS.copy()
         try:
             # warm-up on a clone of the state, on a side stream as torch's
             # capture recipe asks: the first launch of a kernel builds the
@@ -691,7 +681,7 @@ class CycleGraph:
                     solver.cycle()
                 torch.cuda.current_stream(solver.device).wait_stream(side)
                 side.synchronize()
-            kernels.reset_launch_counts()
+            kernels.COUNTS.clear()
             with spans.span("mgcfd.capture.graph"):
                 self.graph = torch.cuda.CUDAGraph()
                 solver.state = {"variables": list(self.variables),
@@ -708,11 +698,11 @@ class CycleGraph:
                             buf.copy_(t)
                     self.rms = torch.stack(rms)
                     self.invalid = torch.stack(invalid)
-            self.launches = kernels.launch_counts(shapes=True)
+            self.launches = kernels.COUNTS.copy()
         finally:
             solver.state = st
-            kernels.reset_launch_counts()
-            kernels.add_launch_counts(counts)
+            kernels.COUNTS.clear()
+            kernels.COUNTS.update(counts)
         spans.count("graph.captures")
 
     def replay(self, solver: "MGCFDSolver"):
@@ -725,7 +715,7 @@ class CycleGraph:
                 if t is not buf:
                     buf.copy_(t)
         self.graph.replay()
-        kernels.add_launch_counts(self.launches)
+        kernels.COUNTS.update(self.launches)
         solver.state = {"variables": list(self.variables),
                         "residuals": list(self.residuals)}
         return self.rms, self.invalid
@@ -801,60 +791,81 @@ class MGCFDSolver:
 
     def cycle(self):
         """One V-cycle; returns (level-0 RMS, invalid count), device
-        scalars."""
-        levels = self.dmesh.levels
-        L = len(levels)
-        legacy = self.dmesh.variant.uses_legacy_step_factor
+        scalars. The only walk over the levels: each level through
+        _visit_level, _restrict, _prolong and _rms, which the sharded
+        solver overrides on its block levels."""
+        L = len(self.dmesh.levels)
         variables = self.state["variables"]
         residuals = self.state["residuals"]
-        # the cycle's invalid count, which the variable-major visits' fused
-        # stages add into in their kernels
-        invalid_total = _new_count(0, self.device)
-
-        mode = self.config.accumulate
-        tstate = self._tstate
+        count = self._new_cycle_count()
 
         def visit(lev):
-            if mode == "window":
-                v, res, _ = _visit_window(levels[lev], variables[lev],
-                                          self.config, legacy, lev,
-                                          invalid_total)
-            elif tstate:
-                v, res, _ = _visit_span(levels[lev], variables[lev],
-                                        self.config, legacy, lev,
-                                        invalid_total)
-            else:
-                v, res, inv = _visit(levels[lev], variables[lev],
-                                     self.dmesh.ff_flux, self.config,
-                                     legacy, lev)
-                with kscope("invalid_count", lev):
-                    invalid_total.add_(inv)
-            variables[lev] = v
-            residuals[lev] = res
-            return res
+            variables[lev], residuals[lev] = self._visit_level(
+                lev, variables[lev], count)
 
         rms = None
         for lev in range(L - 1):
-            res = visit(lev)
+            visit(lev)
             if lev == 0:
-                with kscope("rms", 0):
-                    rms = calc_rms(res, levels[0].num_nodes)
+                rms = self._rms(residuals[0])
             with kscope("restrict", lev):
-                variables[lev + 1] = apply_restrict(
-                    levels[lev], levels[lev + 1], variables[lev],
-                    variables[lev + 1], tstate)
-        res = visit(L - 1)
+                variables[lev + 1] = self._restrict(
+                    lev, variables[lev], variables[lev + 1])
+        visit(L - 1)
         if L == 1:
-            with kscope("rms", 0):
-                rms = calc_rms(res, levels[0].num_nodes)
+            rms = self._rms(residuals[0])
         for lev in range(L - 2, -1, -1):
             with kscope("prolong", lev):
-                variables[lev] = apply_prolong(
-                    levels[lev], levels[lev + 1], residuals[lev + 1],
-                    residuals[lev], variables[lev], tstate)
+                variables[lev] = self._prolong(
+                    lev, residuals[lev + 1], residuals[lev], variables[lev])
             if lev > 0:
                 visit(lev)
-        return rms, invalid_total
+        return rms, self._invalid_total(count)
+
+    def _new_cycle_count(self):
+        """The cycle's invalid count, which every visit adds into (the
+        variable-major visits' fused stages in their kernels)."""
+        return _new_count(0, self.device)
+
+    def _invalid_total(self, count):
+        """The cycle's invalid count from its _new_cycle_count."""
+        return count
+
+    def _visit_level(self, lev: int, q, count):
+        """Smooth level lev's variables q through the path's visit, which
+        the cycle looks up in this module at each call (a planted fault
+        replaces it) and calls with positional arguments, the level last.
+        Returns (q, residual); the visit's invalid count goes into
+        count."""
+        lvl = self.dmesh.levels[lev]
+        legacy = self.dmesh.variant.uses_legacy_step_factor
+        if self.config.accumulate == "window":
+            return _visit_window(lvl, q, self.config, legacy, count, lev)[:2]
+        if self._tstate:
+            return _visit_span(lvl, q, self.config, legacy, count, lev)[:2]
+        q, res, inv = _visit(lvl, q, self.dmesh.ff_flux, self.config, legacy,
+                             lev)
+        with kscope("invalid_count", lev):
+            count.add_(inv)
+        return q, res
+
+    def _restrict(self, lev: int, vars_f, vars_c):
+        """Level lev's variables onto level lev + 1's: the new vars_c."""
+        levels = self.dmesh.levels
+        return apply_restrict(levels[lev], levels[lev + 1], vars_f, vars_c,
+                              self._tstate)
+
+    def _prolong(self, lev: int, res_c, res_f, vars_f):
+        """vars_f of level lev corrected by level lev + 1's residuals
+        res_c: the new vars_f."""
+        levels = self.dmesh.levels
+        return apply_prolong(levels[lev], levels[lev + 1], res_c, res_f,
+                             vars_f, self._tstate)
+
+    def _rms(self, res):
+        """The RMS of level 0's residual res."""
+        with kscope("rms", 0):
+            return calc_rms(res, self.dmesh.levels[0].num_nodes)
 
     def run(self, cycles: int | None = None, verbose: bool = False):
         """Run `cycles` more V-cycles (default config.num_cycles), writing

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from mgcfd_tpu_torch.core.config import SolverConfig
+from mgcfd_tpu_torch import kernels
 from mgcfd_tpu_torch.kernels import DeviceCSR, build, edge_csr
 from mgcfd_tpu_torch.kernels import fused_stage as fused_mod
 from mgcfd_tpu_torch.mesh import generate_multigrid_box
@@ -88,10 +89,10 @@ def test_card_tensors_never_take_the_plain_version(monkeypatch):
     n = lvl.num_nodes
     q = torch.ones((5, n), dtype=torch.float64)
     for w in (edge_csr.flux, edge_csr.rw, edge_csr.restrict):
-        before = w.launches
+        before = kernels.launch_counts()[w.name]
         with pytest.raises(RuntimeError, match="CUDA error 700"):
             w(csr, q)
-        assert w.launches == before
+        assert kernels.launch_counts()[w.name] == before
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         fused_mod.fused_stage(csr, torch.zeros((11, n), dtype=q.dtype), q,
                               q.clone(), torch.ones(n, dtype=q.dtype))

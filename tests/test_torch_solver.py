@@ -224,3 +224,34 @@ def test_step_factors_match_jax_within_one_ulp_at_fp32():
         want = np.asarray(ref.step_factors(lev), np.float32)
         got = s.step_factors(lev)
         assert np.all(np.abs(got - want) <= np.spacing(np.abs(want)))
+
+
+VISITS = {"segment": "_visit", "shift": "_visit",
+          "window": "_visit_window", "pallas": "_visit_span"}
+
+
+@pytest.mark.parametrize("path", list(VISITS))
+def test_cycle_calls_each_visit_with_its_level_last(path, monkeypatch):
+    """The cycle looks the path's visit up in solver.solver at each call
+    and calls it with positional arguments only, the level last (what a
+    planted fault that replaces the visit reads), in the cycle's order:
+    levels 0..L-1 on the way up, then L-2..1 on the way down."""
+    from mgcfd_tpu_torch.mesh import generate_multigrid_box
+    from mgcfd_tpu_torch.solver import solver as solver_mod
+    L = 3
+    s = MGCFDSolver(generate_multigrid_box(8, 8, 8, L),
+                    SolverConfig(dtype="float64", accumulate=path),
+                    device="cpu")
+    real = getattr(solver_mod, VISITS[path])
+    calls = []
+
+    def recorder(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(solver_mod, VISITS[path], recorder)
+    s.run(1)
+    assert calls and all(not kwargs for _, kwargs in calls)
+    levels = [args[-1] for args, _ in calls]
+    assert all(type(lev) is int for lev in levels)
+    assert levels == [*range(L), *range(L - 2, 0, -1)]

@@ -137,7 +137,7 @@ def test_visit_takes_the_plain_stage_factors(accumulate, fused):
     q0 = s.state["variables"][0] * (1.0 + 0.01 * torch.sin(
         torch.arange(lvl.num_nodes, dtype=torch.float64)))[None]
     visit = _visit_window if accumulate == "window" else _visit_span
-    got, res, invalid = visit(lvl, q0, s.config, False, 0)
+    got, res, invalid = visit(lvl, q0, s.config, False, None, 0)
     sf = step_factor_plain(q0, lvl.volumes, lvl.cbrt_volumes, False)
     q = q0
     for j in range(RK):
