@@ -472,15 +472,19 @@ def wsum_epilogue_case(label: str, kern, csr, x, dt, keep=None,
 
 
 def level_nc(lv, dt, dev):
-    """The aggregated boundary/wall normals (11, N) of a host level."""
+    """The fused stages' boundary operand of a host level: its aggregated
+    boundary/wall normals (11, N), compacted to the rows of the nodes with
+    a boundary or wall face (kernels/boundary.py)."""
     import numpy as np
     import torch
     from mgcfd_tpu_torch.core.constants import far_field_state
+    from mgcfd_tpu_torch.kernels import boundary_rows
     from mgcfd_tpu_torch.ops.tops import build_dense_boundary_wall
     bdn, wln, wlc = build_dense_boundary_wall(
         lv.num_nodes, lv.bedge_b, lv.bedge_w, lv.wedge_b, lv.wedge_w,
         far_field_state(np.float64)[1])
-    return torch.as_tensor(np.concatenate([bdn, wln, wlc])).to(dev, dt)
+    return boundary_rows(torch.as_tensor(
+        np.concatenate([bdn, wln, wlc])).to(dt)).to(dev)
 
 
 def check_span_kernels(sh, q, dt, label: str) -> None:
@@ -689,8 +693,8 @@ def check_csr_kernels(solvers) -> None:
         fac = step_factor_plain(q, L0.volumes, L0.cbrt_volumes, False) / 3.0
         xf = random_state(n0, 3, dt, dev)
         rc = random_state(n1, 4, dt, dev) - random_state(n1, 5, dt, dev)
-        k_out, k_inv = fused_stage(L0.csr, L0.nc, q, old, fac)
-        p_out, p_inv = fused_stage_plain(L0.csr, L0.nc, q, old, fac)
+        k_out, k_inv = fused_stage(L0.csr, L0.boundary, q, old, fac)
+        p_out, p_inv = fused_stage_plain(L0.csr, L0.boundary, q, old, fac)
         check_cases([
             ("edge_csr.flux", edge_csr.flux(L0.csr, q),
              plain("flux", L0.csr, q)),
@@ -704,8 +708,8 @@ def check_csr_kernels(solvers) -> None:
         require(int(k_inv) == int(p_inv) == 0,
                 f"fused_stage invalid counts {int(k_inv)} / {int(p_inv)}")
         bad_q = planted(q)
-        k_inv = int(fused_stage(L0.csr, L0.nc, bad_q, old, fac)[1])
-        p_inv = int(fused_stage_plain(L0.csr, L0.nc, bad_q, old, fac)[1])
+        k_inv = int(fused_stage(L0.csr, L0.boundary, bad_q, old, fac)[1])
+        p_inv = int(fused_stage_plain(L0.csr, L0.boundary, bad_q, old, fac)[1])
         log(f"check fused_stage invalid count with a planted NaN, rho<0 "
             f"and E<0: kernel {k_inv}, plain {p_inv}")
         require(k_inv == p_inv > 0, "fused_stage invalid counts differ")
@@ -740,10 +744,10 @@ def check_csr_kernels(solvers) -> None:
                                      False) / 3.0
             hold_stage(f"fused_stage L{lev}", fused_stage,
                        fused_stage_plain,
-                       lambda x: (L.csr, L.nc, x, oldl, facl), ql, dt)
+                       lambda x: (L.csr, L.boundary, x, oldl, facl), ql, dt)
             hold_stage_epilogues(f"fused_stage L{lev}", fused_stage,
                                  fused_stage_plain,
-                                 lambda x: (L.csr, L.nc, x, oldl, facl), ql,
+                                 lambda x: (L.csr, L.boundary, x, oldl, facl), ql,
                                  oldl, dt)
 
 
@@ -804,18 +808,18 @@ def check_shift_kernels(solvers) -> None:
             old = q + 1e-3 * random_state(n, 13, dt, dev)
             fac = step_factor_plain(q, L.volumes, L.cbrt_volumes, False) / 3.0
             spill = 1e-3 * random_state(n, 14, dt, dev)
-            k0, k0_inv = shift.fused_stage(sh, L.nc, q, old, fac)
-            p0, p0_inv = shift.shift_fused_stage_plain(sh, L.nc, q, old,
+            k0, k0_inv = shift.fused_stage(sh, L.boundary, q, old, fac)
+            p0, p0_inv = shift.shift_fused_stage_plain(sh, L.boundary, q, old,
                                                        fac)
-            again, _ = shift.fused_stage(sh, L.nc, q, old, fac)
+            again, _ = shift.fused_stage(sh, L.boundary, q, old, fac)
             require(bool((again == k0).all()),
                     f"shift.fused_stage L{lev} {dt}: two launches differ")
             sch = sh.schedule
             log(f"shift.fused_stage L{lev}: kinds {sch.kinds}, H "
                 f"{sch.halo}, {sch.pencils} pencils x {sch.steps} steps, "
                 f"M {sch.chunk}")
-            k1, _ = shift.fused_stage(sh, L.nc, q, old, fac, spill)
-            p1, _ = shift.shift_fused_stage_plain(sh, L.nc, q, old, fac,
+            k1, _ = shift.fused_stage(sh, L.boundary, q, old, fac, spill)
+            p1, _ = shift.shift_fused_stage_plain(sh, L.boundary, q, old, fac,
                                                   spill)
             check_span_kernels(sh, q, dt, f"L{lev} spans {sh.deltas}")
             check_cases([
@@ -825,8 +829,8 @@ def check_shift_kernels(solvers) -> None:
                     f"shift.fused_stage invalid counts {int(k0_inv)} / "
                     f"{int(p0_inv)}")
             bad_q = planted(q)
-            k_inv = int(shift.fused_stage(sh, L.nc, bad_q, old, fac)[1])
-            p_inv = int(shift.shift_fused_stage_plain(sh, L.nc, bad_q, old,
+            k_inv = int(shift.fused_stage(sh, L.boundary, bad_q, old, fac)[1])
+            p_inv = int(shift.shift_fused_stage_plain(sh, L.boundary, bad_q, old,
                                                       fac)[1])
             log(f"check shift.fused_stage L{lev} invalid count with a "
                 f"planted NaN, rho<0 and E<0: kernel {k_inv}, plain "
@@ -837,7 +841,7 @@ def check_shift_kernels(solvers) -> None:
                 hold_stage_epilogues(
                     f"shift.fused_stage{what} L{lev}", shift.fused_stage,
                     shift.shift_fused_stage_plain,
-                    lambda x, e=extra: (sh, L.nc, x, old, fac, *e), q, old,
+                    lambda x, e=extra: (sh, L.boundary, x, old, fac, *e), q, old,
                     dt)
 
 
@@ -1089,8 +1093,8 @@ def refuse_unknown_dtype(lib) -> None:
                                              None, None, 1, None, 1, None,
                                              None, None, None),
         "mgcfd_fused_stage": lib.mgcfd_fused_stage(
-            7, None, None, None, 0, None, None, None, None, None, None, None,
-            1, None),
+            7, None, None, None, 0, None, None, None, None, None, None, 0,
+            None, None, None, 1, None),
         "mgcfd_shift_flux": lib.mgcfd_shift_flux(
             7, 0, ctypes.addressof(deltas), 1, None, None, None, 1, None),
         "mgcfd_shift_flux_at": lib.mgcfd_shift_flux_at(
@@ -1113,7 +1117,8 @@ def refuse_unknown_dtype(lib) -> None:
                                                  ctypes.addressof(shape)),
         "mgcfd_shift_fused_stage": lib.mgcfd_shift_fused_stage(
             7, ctypes.addressof(deltas), ctypes.addressof(kinds), 1, 8, 1,
-            None, None, None, None, None, None, None, None, None, 1, None),
+            None, None, None, None, None, None, None, 0, None, None, None,
+            None, 1, None),
         "mgcfd_step_factor": lib.mgcfd_step_factor(
             7, 0, None, None, None, None, 0, None, None, 1, None),
     }
@@ -1329,9 +1334,9 @@ def window_rows(W0, q, old, fac, res1, run: str, transfer_run: str):
          lambda: torch.sparse.mm(sp_p, rc_t),
          *edge_csr_cost("wsum", W0.prolong_csr, sz)),
         ("fused_stage", "fused_stage", run,
-         lambda: fused_stage(W0.csr, W0.nc, q, old, fac)[0],
-         lambda: fused_stage_plain(W0.csr, W0.nc, q, old, fac)[0], None,
-         *fused_stage_cost(W0.csr, sz)),
+         lambda: fused_stage(W0.csr, W0.boundary, q, old, fac)[0],
+         lambda: fused_stage_plain(W0.csr, W0.boundary, q, old, fac)[0], None,
+         *fused_stage_cost(W0.csr, W0.boundary, sz)),
         ("edge_csr.rw", "edge_csr", run,
          lambda: edge_csr.rw(W0.csr, q), lambda: plain("rw", W0.csr, q),
          lib_crw, *edge_csr_cost("rw", W0.csr, sz)),
@@ -1365,9 +1370,9 @@ def kernel_records(s_main, s_win, spill_csr, runs, card_label: str):
         "rw", sh, q), dt)
     rows = [
         ("shift.fused_stage", "shift_fused_stage", "main",
-         lambda: shift.fused_stage(sh, M0.nc, q, old, fac)[0],
-         lambda: shift.shift_fused_stage_plain(sh, M0.nc, q, old, fac)[0],
-         None, *shift_fused_stage_cost(sh, sz)),
+         lambda: shift.fused_stage(sh, M0.boundary, q, old, fac)[0],
+         lambda: shift.shift_fused_stage_plain(sh, M0.boundary, q, old, fac)[0],
+         None, *shift_fused_stage_cost(sh, M0.boundary, sz)),
         ("shift.rw", "shift_flux", "main", lambda: shift.rw(sh, q),
          lambda: shift.shift_plain("rw", sh, q), lib_srw,
          *shift_cost("rw", sh, sz)),
@@ -2476,6 +2481,8 @@ def smoke(tet_job, scratch: Path) -> int:
         f"[{name}, {smi}]")
 
     log("run_batched timings: " + json.dumps(timings))
+    log(f"chip_smoke took {time.perf_counter() - T0:.1f} s of its "
+        f"{WATCHDOG_S} s watchdog")
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

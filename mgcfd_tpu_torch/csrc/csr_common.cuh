@@ -1,5 +1,5 @@
 // Device math shared by the kernels: the per-half-edge Euler flux over an
-// owner-sorted CSR, the dense boundary + wall flux and the invalid-state
+// owner-sorted CSR, the boundary + wall flux and the invalid-state
 // count, written from what the Pallas kernels of mgcfd_tpu/pallas/
 // (flux_window.py: _complete8 :150, _flux_math :169, _bw_flux_ch :335;
 // flux_shift.py: _stage_channels :60, _edge_val_ch :80, _bw_flux :357)
@@ -168,16 +168,60 @@ __device__ __forceinline__ void flux_row(const int* __restrict__ row_ptr,
   }
 }
 
-// dense boundary + wall flux of node i from its completed state and the
-// per-node aggregated normals nc (11, n): rows 0:3 the summed boundary
-// normals, 3:6 the summed wall normals, 6:11 the far-field wall constant
-// (flux_window.py::_bw_flux_ch :335, flux_shift.py::_bw_flux :357)
+// the fused stages' boundary/wall operand (kernels/boundary.py): of the
+// per-node aggregated normals nc (11, n), only the rows that are not all
+// +0.0, in node order. Bit i % 32 of mask[i / 32] is set where node i's
+// row is stored, rank[w] counts the stored rows before word w, and vals
+// (11, stored) holds the rows. Nodes with a boundary or wall face, the
+// only ones with a row, are about a tenth of an M6 level's.
+template <typename S>
+struct BoundaryRows {
+  const unsigned* mask;
+  const int* rank;
+  const S* vals;
+  int64_t stored;
+};
+
+// the mask word and the rank of the 32-node word that holds node i. The
+// fused stages load it before their flux phase and use it only in the
+// update: the loads are in flight while the flux is computed, the update
+// waits on one round of loads (the row with old and fac) as it did on
+// the dense operand, and no thread stalls on them before its flux. On
+// the H100 a lookup made in the update (two rounds there), or consumed
+// before the flux phase, cost the stage 3-4 % at -m 8.
+struct BoundaryWord {
+  unsigned mask;
+  int rank;
+};
+
+template <typename S>
+__device__ __forceinline__ BoundaryWord boundary_word(
+    const BoundaryRows<S>& b, int64_t i) {
+  return {b.mask[i >> 5], b.rank[i >> 5]};
+}
+
+// node i's 11 values, from its word w: its stored row where its bit is
+// set, else zeros from registers. A select of each value, not a branch:
+// the flux below runs the same operations on every node, so a node with
+// no row gives the bits that the dense operand's stored zeros gave.
 template <typename S, typename T = compute_t<S>>
-__device__ __forceinline__ void bw_flux(const State8<T>& o,
-                                        const S* __restrict__ nc, int64_t n,
-                                        int64_t i, T r[5]) {
-  T k[11];
-  for (int r0 = 0; r0 < 11; ++r0) k[r0] = to_compute(nc[r0 * n + i]);
+__device__ __forceinline__ void boundary_row(const BoundaryRows<S>& b,
+                                             BoundaryWord w, int64_t i,
+                                             T k[11]) {
+  const unsigned bit = 1u << (i & 31);
+  const bool stored = (w.mask & bit) != 0u;
+  const int64_t j = w.rank + __popc(w.mask & (bit - 1u));
+  for (int r = 0; r < 11; ++r)
+    k[r] = stored ? to_compute(b.vals[r * b.stored + j]) : T(0);
+}
+
+// boundary + wall flux of a node from its completed state and its 11
+// aggregated values k: 0:3 the summed boundary normals, 3:6 the summed
+// wall normals, 6:11 the far-field wall constant
+// (flux_window.py::_bw_flux_ch :335, flux_shift.py::_bw_flux :357)
+template <typename T>
+__device__ __forceinline__ void bw_flux(const State8<T>& o, const T k[11],
+                                        T r[5]) {
   const T vx = o.mx * o.inv, vy = o.my * o.inv, vz = o.mz * o.inv;
   const T bx = k[0], by = k[1], bz = k[2];
   const T hx = T(0.5) * k[3], hy = T(0.5) * k[4], hz = T(0.5) * k[5];

@@ -4,9 +4,9 @@
 // Replaces the Pallas kernel
 // mgcfd_tpu/pallas/flux_window.py::_window_fused_kernel (:359): per owner
 // node it sums the internal-edge flux over its CSR row (edge_csr's flux
-// mode), adds the dense boundary + wall flux from the per-node aggregated
-// normals nc (11, n: rows 0:3 boundary, 3:6 wall, 6:11 the far-field wall
-// constant; _bw_flux_ch :335), writes out = old + fac * flux and counts
+// mode), adds the boundary + wall flux from the per-node aggregated
+// normals (rows 0:3 boundary, 3:6 wall, 6:11 the far-field wall constant;
+// _bw_flux_ch :335), writes out = old + fac * flux and counts
 // NaN, Inf, rho < 0 and E < 0 into total, an int64 the caller keeps
 // across the visit's launches (the cycle's invalid count). The count is
 // reduced per block (warp shuffles, then shared memory) and added with
@@ -15,11 +15,18 @@
 // The epilogue: res, where it is not null, the residual out - old from
 // the stored values, which the last RK stage writes in place of the
 // solver's eager q - old.
+// The aggregated normals come compacted (csr_common.cuh BoundaryRows):
+// only the nodes with a boundary or wall face, 8.7 % of level 0 of the
+// M6 configurations and 10.5-13.2 % of their coarser levels, store their
+// 11 values; every other node reads one bit of a mask word that 32 nodes
+// share and takes zeros. The dense (11, n) operand, zeros nearly all of
+// it, was a fifth of the kernel's bytes.
 //
 // Bound on the H100 (3.35 TB/s): bytes. Level 0 of the box flagship at
 // fp32 moves row_ptr and col (8.4 MB), the weights (4 x 1,800,656 half-
-// edges, 28.8 MB), the state, old and out (18.3 MB), fac (1.2 MB) and nc
-// (13.4 MB): about 70 MB, about 21 us; at bfloat16 about 39 MB, 12 us.
+// edges, 28.8 MB), the state, old and out (18.3 MB), fac (1.2 MB) and the
+// boundary operand (26,384 stored rows, 1.16 MB, and the mask and ranks,
+// 0.08 MB): about 58 MB, about 17 us; at bfloat16 about 33 MB, 10 us.
 // chip_smoke.py recomputes it. One thread per row, as the kernel was first
 // ported, completed the neighbour of every half-edge (5.9 completions per
 // node at level 0, one division and two square roots each), and a warp's
@@ -76,10 +83,10 @@
 // gets without asking.
 // Registers: __launch_bounds__ fits 4 blocks per SM at fp32 and fp64, 5
 // at bf16 (window.cuh).
-// At bfloat16 (the bf16 branch, :382-413) every operand but row_ptr and
-// col is stored as bf16 and widened on load; the window, flux values, sums
-// and old + fac * flux are float32, rounded once on store and counted
-// before rounding.
+// At bfloat16 (the bf16 branch, :382-413) every operand but the indices
+// (row_ptr, col, mask and ranks) is stored as bf16 and widened on load;
+// the window, flux values, sums and old + fac * flux are float32, rounded
+// once on store and counted before rounding.
 #include "csr_tile.cuh"
 
 namespace mgcfd {
@@ -90,7 +97,7 @@ __global__ void __launch_bounds__(kThreads, FusedMinBlocks<S>::value)
                        const int* __restrict__ col, const S* __restrict__ w,
                        int64_t n_half, const S* __restrict__ q,
                        const S* __restrict__ old, const S* __restrict__ fac,
-                       const S* __restrict__ nc, S* __restrict__ out,
+                       BoundaryRows<S> bnd, S* __restrict__ out,
                        S* __restrict__ res, long long* __restrict__ total,
                        int64_t n, bool vec) {
   using C = compute_t<S>;
@@ -98,22 +105,24 @@ __global__ void __launch_bounds__(kThreads, FusedMinBlocks<S>::value)
   const int t = threadIdx.x;
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kTileRows;
   const int64_t i = r0 + t;
+  const bool own = t < kTileRows && i < n;
+  const BoundaryWord word = own ? boundary_word(bnd, i) : BoundaryWord{};
   C acc[5];
   tile_flux_sums<S>(row_ptr, col, w, n_half, q, n, q, n, r0, vec, smem, acc);
   int bad = 0;
-  if (t < kTileRows && i < n)
+  if (own)
     bad = update_node<S, RES>(get8(reinterpret_cast<C*>(smem), kTileRows, t),
-                              acc, nc, old, fac,
-                              static_cast<const S*>(nullptr), n, i, out,
-                              res, n, i);
+                              acc, bnd, word, old, fac,
+                              static_cast<const S*>(nullptr), out, res, n,
+                              i);
   add_block_count(bad, total);
 }
 
 template <typename S>
 int launch_fused(const void* row_ptr, const void* col, const void* w,
                  int64_t n_half, const void* q, const void* old,
-                 const void* fac, const void* nc, void* out, void* res,
-                 void* total, int64_t n, cudaStream_t stream) {
+                 const void* fac, const BoundaryRows<S>& bnd, void* out,
+                 void* res, void* total, int64_t n, cudaStream_t stream) {
   constexpr size_t smem = tile_shared_bytes<S, kTileRows>();
   static_assert(smem <= 48 * 1024, "more shared memory than a launch gets");
   const int64_t blocks = (n + kTileRows - 1) / kTileRows;
@@ -122,8 +131,8 @@ int launch_fused(const void* row_ptr, const void* col, const void* w,
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const int*>(row_ptr), static_cast<const int*>(col),
       static_cast<const S*>(w), n_half, static_cast<const S*>(q),
-      static_cast<const S*>(old), static_cast<const S*>(fac),
-      static_cast<const S*>(nc), static_cast<S*>(out), static_cast<S*>(res),
+      static_cast<const S*>(old), static_cast<const S*>(fac), bnd,
+      static_cast<S*>(out), static_cast<S*>(res),
       static_cast<long long*>(total), n, rows_take_vectors<S>(q, n));
   return static_cast<int>(cudaGetLastError());
 }
@@ -132,20 +141,27 @@ int launch_fused(const void* row_ptr, const void* col, const void* w,
 
 // Returns the cudaError_t of the launch (0 = success), or
 // cudaErrorInvalidValue for an unknown dtype code. dtype: 0 float32, 1
-// float64, 2 bfloat16 (the storage type of w, q, old, fac, nc and out).
-// q, old, out (5, n); fac (n); nc (11, n); w (4, n_half); res (5, n) or
-// null; total: one int64 to which the kernel adds the count.
+// float64, 2 bfloat16 (the storage type of w, q, old, fac, vals and out).
+// q, old, out (5, n); fac (n); the boundary/wall operand (csr_common.cuh
+// BoundaryRows): mask and rank (ceil(n / 32)) uint32 and int32, vals (11,
+// stored); w (4, n_half); res (5, n) or null; total: one int64 to which
+// the kernel adds the count.
 extern "C" int mgcfd_fused_stage(int64_t dtype, const void* row_ptr,
                                  const void* col, const void* w,
                                  int64_t n_half, const void* q,
                                  const void* old, const void* fac,
-                                 const void* nc, void* out, void* res,
-                                 void* total, int64_t n, void* stream) {
+                                 const void* mask, const void* rank,
+                                 const void* vals, int64_t stored,
+                                 void* out, void* res, void* total,
+                                 int64_t n, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return mgcfd::dispatch_dtype(dtype, [&](auto tag) {
     using S = decltype(tag);
     if (n == 0) return 0;
-    return mgcfd::launch_fused<S>(row_ptr, col, w, n_half, q, old, fac, nc,
+    const mgcfd::BoundaryRows<S> bnd{static_cast<const unsigned*>(mask),
+                                     static_cast<const int*>(rank),
+                                     static_cast<const S*>(vals), stored};
+    return mgcfd::launch_fused<S>(row_ptr, col, w, n_half, q, old, fac, bnd,
                                   out, res, total, n, s);
   });
 }

@@ -3,9 +3,10 @@
 //
 // Replaces the Pallas kernel mgcfd_tpu/pallas/flux_shift.py::_fused_kernel
 // (:380, launched at :484): per node the span-decomposed internal flux
-// (shift_common.cuh), plus the dense boundary + wall flux from the
-// aggregated normals nc (11, n) (_bw_flux :357), plus the caller's spill
-// flux when there is one, then out = old + fac * flux, and the count of
+// (shift_common.cuh), plus the boundary + wall flux from the aggregated
+// normals (_bw_flux :357), compacted to the nodes with a boundary or wall
+// face as fused_stage.cu takes them, plus the caller's spill flux when
+// there is one, then out = old + fac * flux, and the count of
 // NaN, Inf, rho < 0 and E < 0. The sums keep the TPU kernel's order: span
 // by span in plan order (acc + val_d(i)) - val_d(i - d), then +
 // boundary/wall, then + spill. The count is reduced per block and added
@@ -16,8 +17,9 @@
 //
 // Bound on the H100 (3.35 TB/s): bytes. Level 0 of the box flagship at
 // fp32 moves the state (6.1 MB), the span weights (3 spans, 14.6 MB), old
-// (6.1 MB), fac (1.2 MB), nc (13.4 MB) and out (6.1 MB): about 48 MB,
-// about 14 us; at bfloat16 about 24 MB, 7 us. chip_smoke.py recomputes it.
+// (6.1 MB), fac (1.2 MB), the boundary operand (1.24 MB, where the dense
+// (11, n) one was 13.4 MB) and out (6.1 MB): about 35 MB, about 10.5 us;
+// at bfloat16 about 18 MB, 5.3 us. chip_smoke.py recomputes it.
 // One thread per node, as the kernel was first ported, completed every
 // neighbour it read and evaluated every edge value once from each
 // endpoint: at level 0 (spans 1, 4480, 70) 7 completions (one division,
@@ -121,7 +123,7 @@ __global__ void __launch_bounds__(kThreads, ShiftMinBlocks<S>::value)
                              const S* __restrict__ q,
                              const S* __restrict__ old,
                              const S* __restrict__ fac,
-                             const S* __restrict__ nc,
+                             BoundaryRows<S> bnd,
                              const S* __restrict__ spill,
                              S* __restrict__ out, S* __restrict__ res,
                              long long* __restrict__ total, int64_t n) {
@@ -151,6 +153,7 @@ __global__ void __launch_bounds__(kThreads, ShiftMinBlocks<S>::value)
     if (base >= n) break;  // the same for every thread of the block
     const int64_t i = base + t;
     const bool own = in_pencil && i < n;
+    const BoundaryWord word = own ? boundary_word(bnd, i) : BoundaryWord{};
     if (s == s0 || !marched) {
       complete_window<S>(q, n, base - H, W, sq, W, 0, sp.vec);
     } else {
@@ -207,7 +210,7 @@ __global__ void __launch_bounds__(kThreads, ShiftMinBlocks<S>::value)
       for (int c = 0; c < 5; ++c) acc[c] = (acc[c] + a[c]) - b[c];
     }
     if (own)
-      bad += update_node<S, RES>(node_i(), acc, nc, old, fac, spill, n, i,
+      bad += update_node<S, RES>(node_i(), acc, bnd, word, old, fac, spill,
                                  out, res, n, i);
     __syncthreads();  // the window and span values are read
   }
@@ -216,9 +219,10 @@ __global__ void __launch_bounds__(kThreads, ShiftMinBlocks<S>::value)
 
 template <typename S>
 int launch_shift_fused(const SpanTiles& sp, const void* w, const void* q,
-                       const void* old, const void* fac, const void* nc,
-                       const void* spill, void* out, void* res,
-                       void* total, int64_t n, cudaStream_t stream) {
+                       const void* old, const void* fac,
+                       const BoundaryRows<S>& bnd, const void* spill,
+                       void* out, void* res, void* total, int64_t n,
+                       cudaStream_t stream) {
   const size_t smem = shared_bytes<compute_t<S>>(static_cast<int>(sp.halo));
   const int64_t blocks =
       sp.pencils * ((sp.steps + sp.chunk - 1) / sp.chunk);
@@ -232,10 +236,9 @@ int launch_shift_fused(const SpanTiles& sp, const void* w, const void* q,
   if (rc != 0) return rc;
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
           sp, static_cast<const S*>(w), static_cast<const S*>(q),
-          static_cast<const S*>(old), static_cast<const S*>(fac),
-          static_cast<const S*>(nc), static_cast<const S*>(spill),
-          static_cast<S*>(out), static_cast<S*>(res),
-          static_cast<long long*>(total), n);
+          static_cast<const S*>(old), static_cast<const S*>(fac), bnd,
+          static_cast<const S*>(spill), static_cast<S*>(out),
+          static_cast<S*>(res), static_cast<long long*>(total), n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -280,15 +283,17 @@ inline int make_span_tiles(const int64_t* deltas, const int64_t* kinds,
 // of num_deltas (<= 16) spans and their kinds in plan order (0 halo, 1
 // marched, at most one, 2 direct); halo: H, a multiple of 8 up to 128, at
 // least every halo span; steps_per_chunk: M >= 1. Device pointers: w
-// (num_deltas, 4, n), q, old, out (5, n), fac (n), nc (11, n), spill (5,
-// n) or null, res (5, n) or null, and total: one int64 to which the
-// kernel adds the count.
+// (num_deltas, 4, n), q, old, out (5, n), fac (n), the boundary/wall
+// operand as fused_stage.cu's (mask and rank (ceil(n / 32)) uint32 and
+// int32, vals (11, stored)), spill (5, n) or null, res (5, n) or null,
+// and total: one int64 to which the kernel adds the count.
 extern "C" int mgcfd_shift_fused_stage(
     int64_t dtype, const int64_t* deltas, const int64_t* kinds,
     int64_t num_deltas, int64_t halo, int64_t steps_per_chunk,
     const void* w, const void* q, const void* old, const void* fac,
-    const void* nc, const void* spill, void* out, void* res, void* total,
-    int64_t n, void* stream) {
+    const void* mask, const void* rank, const void* vals, int64_t stored,
+    const void* spill, void* out, void* res, void* total, int64_t n,
+    void* stream) {
   mgcfd::SpanTiles sp;
   if (mgcfd::make_span_tiles(deltas, kinds, num_deltas, halo,
                              steps_per_chunk, n, &sp) != 0)
@@ -299,7 +304,10 @@ extern "C" int mgcfd_shift_fused_stage(
     if (n == 0) return 0;
     sp.vec = mgcfd::rows_take_vectors<S>(q, n) &&
              sp.stride % mgcfd::Vec<S>::width == 0;
-    return mgcfd::launch_shift_fused<S>(sp, w, q, old, fac, nc, spill, out,
+    const mgcfd::BoundaryRows<S> bnd{static_cast<const unsigned*>(mask),
+                                     static_cast<const int*>(rank),
+                                     static_cast<const S*>(vals), stored};
+    return mgcfd::launch_shift_fused<S>(sp, w, q, old, fac, bnd, spill, out,
                                         res, total, n, s);
   });
 }

@@ -214,26 +214,28 @@ __device__ __forceinline__ void async_wait_all() {
 // stored value: to_storage(to_compute(out) - to_compute(old)), the
 // rounding of the eager q - old. A template flag, not a test of res, so
 // that the other stages run the update as it was before the epilogue.
-// nc, old, fac and spill are read at column ii of rows of stride nn (the
-// device arrays: nn = n, ii = i; a staged copy: its own stride and column)
+// The boundary/wall values come from the compact operand bnd and node
+// i's word of it, bw_word (csr_common.cuh boundary_word); old, fac, spill,
+// out and res are (5, n) or (n) rows read and written at column i.
 template <typename S, bool RES, typename C = compute_t<S>>
 __device__ __forceinline__ int update_node(
-    const State8<C>& qi, const C acc[5], const S* __restrict__ nc,
-    const S* __restrict__ old, const S* __restrict__ fac,
-    const S* __restrict__ spill, int64_t nn, int64_t ii,
+    const State8<C>& qi, const C acc[5], const BoundaryRows<S>& bnd,
+    BoundaryWord bw_word, const S* __restrict__ old,
+    const S* __restrict__ fac, const S* __restrict__ spill,
     S* __restrict__ out, S* __restrict__ res, int64_t n, int64_t i) {
-  C bw[5];
-  bw_flux(qi, nc, nn, ii, bw);
-  const C f = to_compute(fac[ii]);
+  C k[11], bw[5];
+  boundary_row(bnd, bw_word, i, k);
+  bw_flux(qi, k, bw);
+  const C f = to_compute(fac[i]);
   int bad = 0;
   for (int c = 0; c < 5; ++c) {
     C a = acc[c] + bw[c];
-    if (spill != nullptr) a = a + to_compute(spill[c * nn + ii]);
-    const C qn = to_compute(old[c * nn + ii]) + f * a;
+    if (spill != nullptr) a = a + to_compute(spill[c * n + i]);
+    const C qn = to_compute(old[c * n + i]) + f * a;
     out[c * n + i] = to_storage<S>(qn);
     if constexpr (RES)
       res[c * n + i] = to_storage<S>(sub_rn(
-          to_compute(to_storage<S>(qn)), to_compute(old[c * nn + ii])));
+          to_compute(to_storage<S>(qn)), to_compute(old[c * n + i])));
     bad += invalid_value(c, qn);
   }
   return bad;

@@ -21,6 +21,7 @@ carries 18 / 6 / 3 / 3 (invalid / residual / restrict / prolong).
 """
 from ..utils import spans
 from . import edge_csr, fused_stage as _fused, shift, step_factor as _step
+from .boundary import BoundaryRows, boundary_rows
 from .counts import COUNTS
 from .edge_csr import DeviceCSR
 from .shift import DeviceShift
@@ -68,5 +69,6 @@ spans.source("launches", lambda: _named("launches"))
 spans.source("epilogue", lambda: _named("epilogue"))
 
 
-__all__ = ["DeviceCSR", "DeviceShift", "EDGE_CSR", "WRAPPERS", "COUNTS",
+__all__ = ["BoundaryRows", "boundary_rows", "DeviceCSR", "DeviceShift",
+           "EDGE_CSR", "WRAPPERS", "COUNTS",
            "reset_launch_counts", "launch_counts", "add_launch_counts"]

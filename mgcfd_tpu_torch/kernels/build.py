@@ -43,8 +43,8 @@ _I = ctypes.c_int64
 _SIGNATURES = {
     "mgcfd_edge_csr": [_I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P,
                        _P, _P],
-    "mgcfd_fused_stage": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _P],
+    "mgcfd_fused_stage": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                          _P, _P, _P, _I, _P],
     "mgcfd_shift_flux": [_I, _I, _P, _I, _P, _P, _P, _I, _P],
     "mgcfd_shift_flux_at": [_I, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P],
     "mgcfd_shift_flux_shape": [_I, _I, _I, _I, _P],
@@ -56,7 +56,7 @@ _SIGNATURES = {
     "mgcfd_flux_at": [_I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P],
     "mgcfd_flux_shape": [_I, _I, _I, _P],
     "mgcfd_shift_fused_stage": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
-                                _P, _P, _P, _P, _P, _I, _P],
+                                _P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
     "mgcfd_step_factor": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P],
 }
 

@@ -2,8 +2,10 @@
 csrc/fused_stage.cu, its wrapper and its plain PyTorch version.
 
 Replaces mgcfd_tpu/pallas/flux_window.py::_window_fused_kernel. Per node:
-the internal-edge flux over its CSR row, plus the dense boundary + wall
-flux from the aggregated normals nc (11, N), then out = old + fac * flux,
+the internal-edge flux over its CSR row, plus the boundary + wall flux
+from the aggregated normals, which the kernel takes compacted to the nodes
+with a boundary or wall face (kernels/boundary.py BoundaryRows), then out
+= old + fac * flux,
 plus the count of NaN/Inf/negative density or energy, added into an
 int64 counter of one element: the caller's (the solver's cycle count),
 else a new zero. The wrapper
@@ -23,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import build, edge_csr
+from .boundary import as_dense, check_rows
 from .counts import launched
 from .edge_csr import DeviceCSR, complete8, compute_dtype, pointer
 
@@ -50,11 +53,13 @@ def bw_flux(qo, nc):
 
 def fused_stage_plain(csr: DeviceCSR, nc, q, old, fac, count=None,
                       residual: bool = False):
-    """What the kernel computes, as stage_outputs gives it."""
+    """What the kernel computes, as stage_outputs gives it; nc the
+    BoundaryRows or the dense (11, N) operand."""
     c = compute_dtype(q.dtype)
     acc = edge_csr.row_sums("flux", csr, q)
     qc = q.to(c)
-    qnew = old.to(c) + fac.to(c) * (acc + bw_flux(complete8(qc), nc.to(c)))
+    qnew = old.to(c) + fac.to(c) * (acc + bw_flux(complete8(qc),
+                                                  as_dense(nc).to(c)))
     return stage_outputs(qnew, old, count, residual)
 
 
@@ -112,9 +117,10 @@ class FusedStage:
     def __init__(self, name: str = "fused_stage"):
         self.name = name
 
-    def __call__(self, csr: DeviceCSR, nc, q, old, fac, count=None,
+    def __call__(self, csr: DeviceCSR, bnd, q, old, fac, count=None,
                  residual: bool = False):
-        """q, old: (5, N); nc: (11, N); fac: (N,) = step factor /
+        """q, old: (5, N); bnd: the BoundaryRows of the level's aggregated
+        normals (kernels/boundary.py); fac: (N,) = step factor /
         (RK + 1 - j); count: the int64 counter of one element that the
         kernel adds the invalid count into, or None for a new zero.
         Returns (q_next, count), with residual also q_next - old (see
@@ -124,23 +130,24 @@ class FusedStage:
                              "must coincide")
         edge_csr.check_operands(csr, q, "flux")
         n = csr.num_rows
-        for name, t, shape in (("old", old, (5, n)), ("nc", nc, (11, n)),
-                               ("fac", fac, (n,))):
+        for name, t, shape in (("old", old, (5, n)), ("fac", fac, (n,))):
             if tuple(t.shape) != shape or t.dtype != q.dtype or \
                     t.device != q.device or not t.is_contiguous():
                 raise ValueError(f"fused_stage: {name} must be a contiguous "
                                  f"{shape} {q.dtype} tensor on {q.device}")
+        check_rows(bnd, q, n, self.name)
         check_count(count, q, self.name)
         if not edge_csr._on_card(q):
-            return fused_stage_plain(csr, nc, q, old, fac, count, residual)
+            return fused_stage_plain(csr, bnd, q, old, fac, count, residual)
         out = torch.empty_like(q)
         res = torch.empty_like(q) if residual else None
         total = count if count is not None else new_count(q.device)
         rc = build.library().mgcfd_fused_stage(
             build.dtype_code(q), csr.row_ptr.data_ptr(),
             csr.col.data_ptr(), csr.w.data_ptr(), csr.num_entries,
-            q.data_ptr(), old.data_ptr(), fac.data_ptr(), nc.data_ptr(),
-            out.data_ptr(), pointer(res), total.data_ptr(), n,
+            q.data_ptr(), old.data_ptr(), fac.data_ptr(),
+            bnd.mask.data_ptr(), bnd.rank.data_ptr(), bnd.vals.data_ptr(),
+            bnd.stored, out.data_ptr(), pointer(res), total.data_ptr(), n,
             torch.cuda.current_stream(q.device).cuda_stream)
         build.check(rc, self.name)
         launched(self.name, epilogues=stage_epilogues(count, residual))

@@ -35,6 +35,7 @@ import torch
 
 from ..prep.shift import ShiftPlan
 from . import build, edge_csr
+from .boundary import as_dense, check_rows
 from .counts import launched
 from .edge_csr import (FULL_LEVEL, STORAGE_DTYPES, THIN_BELOW, complete8,
                        compute_dtype, flux_math, pointer)
@@ -205,9 +206,11 @@ def span_sums(mode: str, sh: DeviceShift, q):
 
 def shift_fused_stage_plain(sh: DeviceShift, nc, q, old, fac, spill=None,
                             count=None, residual: bool = False):
-    """What the fused kernel computes, as stage_outputs gives it."""
+    """What the fused kernel computes, as stage_outputs gives it; nc the
+    BoundaryRows or the dense (11, N) operand."""
     c = compute_dtype(q.dtype)
-    acc = span_sums("flux", sh, q) + bw_flux(complete8(q.to(c)), nc.to(c))
+    acc = span_sums("flux", sh, q) + bw_flux(complete8(q.to(c)),
+                                             as_dense(nc).to(c))
     if spill is not None:
         acc = acc + spill.to(c)
     qnew = old.to(c) + fac.to(c) * acc
@@ -290,16 +293,16 @@ class ShiftFusedStage:
     def __init__(self, name: str = "shift.fused_stage"):
         self.name = name
 
-    def __call__(self, sh: DeviceShift, nc, q, old, fac, spill=None,
+    def __call__(self, sh: DeviceShift, bnd, q, old, fac, spill=None,
                  count=None, residual: bool = False):
-        """q, old: (5, N); nc: (11, N); fac: (N,) = step factor /
+        """q, old: (5, N); bnd: the BoundaryRows of the level's aggregated
+        normals (kernels/boundary.py); fac: (N,) = step factor /
         (RK + 1 - j); spill: (5, N) flux of the plan's spill edges, or
         None; count and residual as fused_stage's. Returns (q_next,
         count), with residual also q_next - old."""
         _check(sh, q, self.name)
         n = sh.num_nodes
-        operands = [("old", old, (5, n)), ("nc", nc, (11, n)),
-                    ("fac", fac, (n,))]
+        operands = [("old", old, (5, n)), ("fac", fac, (n,))]
         if spill is not None:
             operands.append(("spill", spill, (5, n)))
         for what, t, shape in operands:
@@ -307,9 +310,10 @@ class ShiftFusedStage:
                     t.device != q.device or not t.is_contiguous():
                 raise ValueError(f"{self.name}: {what} must be a contiguous "
                                  f"{shape} {q.dtype} tensor on {q.device}")
+        check_rows(bnd, q, n, self.name)
         check_count(count, q, self.name)
         if not edge_csr._on_card(q):
-            return shift_fused_stage_plain(sh, nc, q, old, fac, spill, count,
+            return shift_fused_stage_plain(sh, bnd, q, old, fac, spill, count,
                                            residual)
         out = torch.empty_like(q)
         res = torch.empty_like(q) if residual else None
@@ -320,7 +324,8 @@ class ShiftFusedStage:
             build.dtype_code(q), ctypes.addressof(deltas),
             ctypes.addressof(kinds), len(sh.deltas), sched.halo,
             sched.chunk, sh.w.data_ptr(), q.data_ptr(), old.data_ptr(),
-            fac.data_ptr(), nc.data_ptr(), pointer(spill), out.data_ptr(),
+            fac.data_ptr(), bnd.mask.data_ptr(), bnd.rank.data_ptr(),
+            bnd.vals.data_ptr(), bnd.stored, pointer(spill), out.data_ptr(),
             pointer(res), total.data_ptr(), n,
             torch.cuda.current_stream(q.device).cuda_stream)
         build.check(rc, self.name)

@@ -64,11 +64,18 @@ def edge_csr_cost(mode: str, csr, sz: int):
     return nbytes, ops
 
 
-def fused_stage_cost(csr, sz: int):
-    """fused_stage: q, old, fac and nc in; the new state out and the
-    count added into an int64."""
+def boundary_bytes(bnd, sz: int) -> int:
+    """Bytes of a fused stage's boundary operand (kernels/boundary.py):
+    the mask and rank words, 4 bytes each, and the stored rows."""
+    return 8 * int(bnd.mask.shape[0]) + sz * NC_ROWS * bnd.stored
+
+
+def fused_stage_cost(csr, bnd, sz: int):
+    """fused_stage: q, old, fac and the boundary operand bnd in; the new
+    state out and the count added into an int64."""
     n = csr.num_rows
-    return (csr_bytes(csr, 4, sz) + sz * n * (5 + 5 + 1 + NC_ROWS + 5) + 8,
+    return (csr_bytes(csr, 4, sz) + sz * n * (5 + 5 + 1 + 5)
+            + boundary_bytes(bnd, sz) + 8,
             FLUX_OPS_PER_ENTRY * csr.num_entries
             + (FLUX_OPS_PER_ROW + FUSED_EXTRA_OPS_PER_ROW) * n)
 
@@ -83,9 +90,11 @@ def shift_cost(mode: str, sh, sz: int):
     return sz * n * (5 + 3 * d + 5), SHIFT_RW_OPS_PER_SPAN_ROW * d * n
 
 
-def shift_fused_stage_cost(sh, sz: int):
+def shift_fused_stage_cost(sh, bnd, sz: int):
+    """shift.fused_stage: as fused_stage_cost, with the span weights in
+    place of the CSR."""
     n, d = sh.num_nodes, len(sh.deltas)
-    return (sz * n * (5 + 4 * d + 5 + 1 + NC_ROWS + 5) + 8,
+    return (sz * n * (5 + 4 * d + 5 + 1 + 5) + boundary_bytes(bnd, sz) + 8,
             (SHIFT_FLUX_OPS_PER_SPAN_ROW * d + FLUX_OPS_PER_ROW
              + FUSED_EXTRA_OPS_PER_ROW) * n)
 

@@ -81,19 +81,22 @@ class InstrumentedSolver:
                  config: SolverConfig | None = None, device=None):
         config = config or SolverConfig()
         # mgcfd_tpu's instrumented solver neither resumes nor writes
-        # checkpoints (see above)
+        # checkpoints (see above); the fused stages cannot be split (see
+        # above), so its levels are built for the unfused ones
         self._base = self.solver_class(mesh, dataclasses.replace(
-            config, resume=False, checkpoint_every=0), device)
+            config, resume=False, checkpoint_every=0, fuse_stage=False,
+            fuse_window_stage=False), device)
         self.mesh = mesh
-        self.config = self._base.config
+        # the configuration as asked, resolved ('auto') by the base
+        self.config = dataclasses.replace(
+            self._base.config, fuse_stage=config.fuse_stage,
+            fuse_window_stage=config.fuse_window_stage)
         self.device = self._base.device
         self.dmesh = self._base.dmesh
         self.tstate = variable_major(self.config)
-        # the fused stages cannot be split (see above), and the crippled
-        # twin does not run; every cycle checked
+        # the crippled twin does not run; every cycle checked
         self._base.config = dataclasses.replace(
-            self._base.config, fuse_stage=False, fuse_window_stage=False,
-            flux_cripple=False, check_invalid_every=1)
+            self._base.config, flux_cripple=False, check_invalid_every=1)
         self.stats = KernelStats(defaultdict(float), defaultdict(int),
                                  defaultdict(int))
         self._recording = True

@@ -68,7 +68,8 @@ from ..core.config import SolverConfig
 from ..core.constants import NVAR, RK, MeshVariant, far_field_state
 from ..core.types import MultigridMesh
 from .. import kernels
-from ..kernels import DeviceCSR, DeviceShift, edge_csr, shift
+from ..kernels import (BoundaryRows, DeviceCSR, DeviceShift, boundary_rows,
+                       edge_csr, shift)
 from ..kernels.fused_stage import fused_stage, invalid_count
 from ..kernels.step_factor import StepScratch
 from ..mesh.build import apply_ewt_conditioning
@@ -114,8 +115,12 @@ class DeviceLevel:
     ell: Optional[DeviceIncidence] = None  # accumulate='ell'
     # accumulate='window'
     csr: Optional[DeviceCSR] = None        # flux plan of this level
-    # accumulate='window', 'pallas', transposed 'shift'
-    nc: Optional[torch.Tensor] = None      # (11, N) boundary/wall consts
+    # the aggregated boundary/wall normals of the variable-major paths:
+    # compacted where each RK stage is a fused kernel ('window', 'pallas';
+    # kernels/boundary.py), else the dense (11, N) that the unfused stages
+    # read
+    boundary: Optional[BoundaryRows] = None
+    nc: Optional[torch.Tensor] = None
     step: Optional[StepScratch] = None     # the step factor kernel's (CUDA)
     # accumulate='pallas', 'shift': the span plan and its spill edges
     shift: Optional[DeviceShift] = None
@@ -186,6 +191,15 @@ def variable_major(config: SolverConfig) -> bool:
             or (config.accumulate == "shift" and config.transposed))
 
 
+def fused_stages(config: SolverConfig) -> bool:
+    """Whether each RK stage is one fused kernel launch: fused_stage on
+    'window' (unless fuse_window_stage is False), shift.fused_stage on
+    'pallas' with fuse_stage."""
+    if config.accumulate == "window":
+        return config.fuse_window_stage is not False
+    return config.accumulate == "pallas" and config.fuse_stage
+
+
 def upload(make):
     """make(), a host -> device copy and cast, inside an mgcfd.upload
     span; the bytes of the tensors it returns (a tensor, or a dataclass
@@ -203,9 +217,12 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
     """Condition the edge weights per mesh variant (euler3d:333-352) on
     copies, cast to the configured dtype, upload, and build the plans and
     boundary/wall constants of the chosen path, each plan through the
-    plan cache (config.plan_cache_dir). Every float64 host array is cast
-    as mgcfd_tpu casts it (torch rounds float64 -> bfloat16 through
-    float32, as jnp.asarray and ml_dtypes do)."""
+    plan cache (config.plan_cache_dir). The constants of a fused stage are
+    compacted to the rows of the nodes with a boundary or wall face,
+    counted over the levels as boundary.rows.stored of boundary.rows.all.
+    Every float64 host array is cast as mgcfd_tpu casts it (torch rounds
+    float64 -> bfloat16 through float32, as jnp.asarray and ml_dtypes
+    do)."""
     dtype = DTYPES[config.dtype]
     with spans.span("mgcfd.prepare.condition"):
         levels = [dataclasses.replace(lv, edge_w=lv.edge_w.copy(),
@@ -270,10 +287,17 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
                 d.spill_csr = upload(lambda: DeviceCSR.from_plan(
                     spill, device, dtype))
         if variable_major(config):
-            bdn, wln, wlc = tops.build_dense_boundary_wall(
+            nc = np.concatenate(tops.build_dense_boundary_wall(
                 lv.num_nodes, lv.bedge_b, lv.bedge_w, lv.wedge_b,
-                lv.wedge_w, ff_flux)
-            d.nc = put(np.concatenate([bdn, wln, wlc], axis=0))
+                lv.wedge_w, ff_flux), axis=0)
+            if fused_stages(config):
+                # built from the values cast on the host, as put casts
+                d.boundary = upload(lambda: boundary_rows(
+                    torch.as_tensor(nc).to(dtype)).to(device))
+                spans.count("boundary.rows.stored", d.boundary.stored)
+                spans.count("boundary.rows.all", lv.num_nodes)
+            else:
+                d.nc = put(nc)
             if device.type == "cuda":
                 d.step = StepScratch(lv.num_nodes, dtype, device)
         dlevels.append(d)
@@ -513,7 +537,7 @@ def _smooth(lvl: DeviceLevel, q, config: SolverConfig, legacy_step: bool,
 
 def _window_stage(lvl: DeviceLevel, q, old, fac, count, residual: bool):
     """One RK stage of the window path as one fused_stage launch."""
-    return fused_stage(lvl.csr, lvl.nc, q, old, fac, count,
+    return fused_stage(lvl.csr, lvl.boundary, q, old, fac, count,
                        residual=residual)
 
 
@@ -522,7 +546,7 @@ def _visit_window(lvl: DeviceLevel, q, config: SolverConfig,
     """The window path's smoothing pass (_smooth): fused_stage per RK
     stage, or with fuse_window_stage=False the unfused stages. tag: the
     level, for kscope; the cycle calls each visit with the level last."""
-    stage = _window_stage if config.fuse_window_stage is not False else None
+    stage = _window_stage if fused_stages(config) else None
     return _smooth(lvl, q, config, legacy_step, count, tag, stage)
 
 
@@ -593,8 +617,8 @@ def _span_stage(lvl: DeviceLevel, q, old, fac, count, residual: bool):
     operand."""
     spill = (None if lvl.spill_csr is None
              else edge_csr.flux(lvl.spill_csr, q))
-    return shift.fused_stage(lvl.shift, lvl.nc, q, old, fac, spill, count,
-                             residual=residual)
+    return shift.fused_stage(lvl.shift, lvl.boundary, q, old, fac, spill,
+                             count, residual=residual)
 
 
 def _visit_span(lvl: DeviceLevel, q, config: SolverConfig,
@@ -602,8 +626,7 @@ def _visit_span(lvl: DeviceLevel, q, config: SolverConfig,
     """The span paths' smoothing pass (_smooth): shift.fused_stage per RK
     stage on 'pallas' with fuse_stage, else the unfused stages (the span
     flux and its spill edges). Arguments as _visit_window's."""
-    stage = (_span_stage if config.accumulate == "pallas" and config.fuse_stage
-             else None)
+    stage = _span_stage if fused_stages(config) else None
     return _smooth(lvl, q, config, legacy_step, count, tag, stage)
 
 

@@ -40,8 +40,8 @@ from mgcfd_tpu_torch.cli.main import main as cli_main
 from mgcfd_tpu_torch.convert import mesh_from_arrays
 from mgcfd_tpu_torch.core.config import SolverConfig
 from mgcfd_tpu_torch import kernels
-from mgcfd_tpu_torch.kernels import (DeviceCSR, DeviceShift, build,
-                                     edge_csr, shift)
+from mgcfd_tpu_torch.kernels import (DeviceCSR, DeviceShift, boundary_rows,
+                                     build, edge_csr, shift)
 from mgcfd_tpu_torch.kernels import fused_stage as fused_mod
 from mgcfd_tpu_torch.ops.tops import build_dense_boundary_wall
 from mgcfd_tpu_torch.prep.csr import (build_flux_csr, build_prolong_csr,
@@ -104,7 +104,8 @@ def test_bf16_casts_equal_jax_bit_for_bit():
         bn = jl.pallas_fused.bn
         jw = from_jax(jl.pallas_fused.w_pad[:, :, bn:bn + n])
         assert torch.equal(pl.shift.w[:, [3, 0, 1, 2]], jw)
-        assert torch.equal(pl.nc, from_jax(jl.pallas_fused.nc[:, :n]))
+        assert torch.equal(pl.boundary.dense(),
+                           from_jax(jl.pallas_fused.nc[:, :n]))
     lv0, lv1 = s.mesh.levels
     for csr, plan in ((s.dmesh.levels[0].restrict_csr, build_restrict_csr(
             lv0.mg_mapping, lv0.num_nodes, lv1.num_nodes)[0]),
@@ -165,7 +166,8 @@ def test_shift_fused_stage_bf16_matches_pallas(box_level, with_spill,
                            None if spill is None else jbf(spill))
     got, got_inv = shift.fused_stage(
         DeviceShift.from_plan(plan, n, "cpu", BF),
-        bf(np.concatenate([bdn, wln, wlc])), bf(q[:, :n]), bf(old[:, :n]),
+        boundary_rows(bf(np.concatenate([bdn, wln, wlc]))), bf(q[:, :n]),
+        bf(old[:, :n]),
         bf(fac[:n]), None if spill is None else bf(spill[:, :n]))
     assert got_inv.dtype == torch.int64
     assert int(got_inv) == int(want_inv)
@@ -268,7 +270,8 @@ def test_window_fused_stage_bf16_matches_pallas(jtet, plant):
     stage = PallasWindowFusedStage(base, bdn, wln, wlc, dtype=JBF)
     want, want_inv = stage(jbf(q), jbf(old), jbf(fac), None)
     got, got_inv = fused_mod.fused_stage(
-        csr_bf16(build_flux_csr(lvl)), bf(np.concatenate([bdn, wln, wlc])),
+        csr_bf16(build_flux_csr(lvl)),
+        boundary_rows(bf(np.concatenate([bdn, wln, wlc]))),
         bf(q[:, :n]), bf(old[:, :n]), bf(fac[:n]))
     assert int(got_inv) == int(want_inv) == (2 if plant else 0)
     assert_agree(got, from_jax(want[:, :n]))
@@ -353,15 +356,16 @@ def test_wrappers_refuse_mismatched_dtypes(box_level):
                    torch.ones((5, n), dtype=torch.float16))
     q = torch.ones((5, n), dtype=BF)
     with pytest.raises(ValueError, match="fac"):
-        shift.fused_stage(sh, torch.zeros((11, n), dtype=BF), q, q,
-                          torch.ones(n, dtype=torch.float32))
+        shift.fused_stage(sh, boundary_rows(torch.zeros((11, n), dtype=BF)),
+                          q, q, torch.ones(n, dtype=torch.float32))
     lvl = mesh_from_arrays(jax_tet(6, 6, 6, 2, seed=1)).levels[0]
     csr = csr_bf16(build_flux_csr(lvl))
     m = lvl.num_nodes
     with pytest.raises(TypeError):
         edge_csr.flux(csr, torch.ones((5, m), dtype=torch.float64))
     with pytest.raises(ValueError, match="old"):
-        fused_mod.fused_stage(csr, torch.zeros((11, m), dtype=BF),
+        fused_mod.fused_stage(csr, boundary_rows(torch.zeros((11, m),
+                                                             dtype=BF)),
                               torch.ones((5, m), dtype=BF),
                               torch.ones((5, m), dtype=torch.float32),
                               torch.ones(m, dtype=BF))
@@ -396,12 +400,12 @@ def test_wrappers_launch_the_bf16_kernels_for_card_tensors(monkeypatch,
     n = box_level.num_nodes
     sh = DeviceShift.from_plan(build_shift_plan(box_level), n, "cpu", BF)
     q = bf(state(n, 1))
-    nc = torch.zeros((11, n), dtype=BF)
+    nc = boundary_rows(torch.zeros((11, n), dtype=BF))
     fac = torch.ones(n, dtype=BF)
     lvl = mesh_from_arrays(jax_tet(6, 6, 6, 2, seed=1)).levels[0]
     csr = csr_bf16(build_flux_csr(lvl))
     qt = bf(state(lvl.num_nodes, 2))
-    nct = torch.zeros((11, lvl.num_nodes), dtype=BF)
+    nct = boundary_rows(torch.zeros((11, lvl.num_nodes), dtype=BF))
     launches = [
         (shift.flux, lambda: shift.flux(sh, q)),
         (shift.rw, lambda: shift.rw(sh, q)),

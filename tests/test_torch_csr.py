@@ -21,7 +21,7 @@ from mgcfd_tpu.prep.window import (build_prolong_window,
                                    build_restrict_window, build_window_plan,
                                    composed_prolong_halves)
 from mgcfd_tpu_torch.convert import mesh_from_arrays
-from mgcfd_tpu_torch.kernels import DeviceCSR, edge_csr
+from mgcfd_tpu_torch.kernels import DeviceCSR, boundary_rows, edge_csr
 from mgcfd_tpu_torch.kernels.fused_stage import fused_stage
 from mgcfd_tpu_torch.ops.tops import build_dense_boundary_wall
 from mgcfd_tpu_torch.prep.csr import (build_flux_csr, build_prolong_csr,
@@ -213,7 +213,7 @@ def test_fused_stage_matches_pallas_window(jmesh, pmesh, plant):
                            None if np.isscalar(spill)
                            else jnp.asarray(spill))
     want = np.asarray(want)[:, :n]
-    nc = torch.as_tensor(np.concatenate([bdn, wln, wlc]))
+    nc = boundary_rows(torch.as_tensor(np.concatenate([bdn, wln, wlc])))
     got, got_inv = fused_stage(dev(build_flux_csr(pl)), nc,
                                tt(q[:, :n]),
                                tt(old[:, :n]),

@@ -34,8 +34,8 @@ from mgcfd_tpu_torch import kernels
 from mgcfd_tpu_torch.core.config import SolverConfig
 from mgcfd_tpu_torch.core.constants import RK, MeshVariant, far_field_state
 from mgcfd_tpu_torch.core.types import MultigridMesh
-from mgcfd_tpu_torch.kernels import (DeviceCSR, DeviceShift, build,
-                                     edge_csr, shift)
+from mgcfd_tpu_torch.kernels import (DeviceCSR, DeviceShift, boundary_rows,
+                                     build, edge_csr, shift)
 from mgcfd_tpu_torch.kernels.fused_stage import fused_stage
 from mgcfd_tpu_torch.mesh.generate import (generate_box_mesh,
                                            generate_multigrid_box)
@@ -97,14 +97,15 @@ def noise(shape, dtype, device="cpu", seed: int = 0):
 
 def stage_call(kind: str, lv, dtype, device="cpu"):
     """One fused stage of a level as the visits launch it: fn(q, old, fac,
-    count=None, residual=False) and nc; window: fused_stage over the
+    count=None, residual=False); window: fused_stage over the
     level's flux CSR; span: shift.fused_stage over its span plan, with a
     spill operand in 'span+spill'."""
     n = lv.num_nodes
     bdn, wln, wlc = tops.build_dense_boundary_wall(
         n, lv.bedge_b, lv.bedge_w, lv.wedge_b, lv.wedge_w,
         far_field_state(np.float64)[1])
-    nc = torch.as_tensor(np.concatenate([bdn, wln, wlc])).to(device, dtype)
+    nc = boundary_rows(torch.as_tensor(np.concatenate([bdn, wln, wlc])).to(
+        device, dtype))
     if kind == "window":
         csr = DeviceCSR.from_plan(build_flux_csr(lv), device, dtype)
         return lambda q, old, fac, **epi: fused_stage(csr, nc, q, old, fac,
@@ -244,11 +245,11 @@ def eager_cycle(s: MGCFDSolver, mapped):
         invalid = torch.zeros((), dtype=torch.int64, device=s.device)
         for j in range(RK):
             if window:
-                q, inv = fused_stage(lvl.csr, lvl.nc, q, old, fac[j])
+                q, inv = fused_stage(lvl.csr, lvl.boundary, q, old, fac[j])
             else:
                 spill = (None if lvl.spill_csr is None
                          else edge_csr.flux(lvl.spill_csr, q))
-                q, inv = shift.fused_stage(lvl.shift, lvl.nc, q, old,
+                q, inv = shift.fused_stage(lvl.shift, lvl.boundary, q, old,
                                            fac[j], spill)
             invalid = invalid + inv
             t_indirect_rw(lvl, q, s.config)
@@ -500,12 +501,12 @@ def test_stage_epilogues_on_the_card(card, m6, kind, dtype):
         n = lvl.num_nodes
         if kind == "window":
             def run(q, old, fac, **epi):
-                return fused_stage(lvl.csr, lvl.nc, q, old, fac, **epi)
+                return fused_stage(lvl.csr, lvl.boundary, q, old, fac, **epi)
         else:
             def run(q, old, fac, **epi):
                 spill = (None if lvl.spill_csr is None
                          else edge_csr.flux(lvl.spill_csr, q))
-                return shift.fused_stage(lvl.shift, lvl.nc, q, old, fac,
+                return shift.fused_stage(lvl.shift, lvl.boundary, q, old, fac,
                                          spill, **epi)
         q0 = state(n, dtype, card, seed=lev, plant=True)
         fac = 1e-3 * (1 + noise((n,), dtype, card, seed=lev).abs())

@@ -14,7 +14,7 @@ import torch
 
 from mgcfd_tpu_torch.core.config import SolverConfig
 from mgcfd_tpu_torch import kernels
-from mgcfd_tpu_torch.kernels import DeviceCSR, build, edge_csr
+from mgcfd_tpu_torch.kernels import DeviceCSR, boundary_rows, build, edge_csr
 from mgcfd_tpu_torch.kernels import fused_stage as fused_mod
 from mgcfd_tpu_torch.mesh import generate_multigrid_box
 from mgcfd_tpu_torch.prep.csr import build_flux_csr
@@ -94,8 +94,9 @@ def test_card_tensors_never_take_the_plain_version(monkeypatch):
             w(csr, q)
         assert kernels.launch_counts()[w.name] == before
     with pytest.raises(RuntimeError, match="CUDA error 700"):
-        fused_mod.fused_stage(csr, torch.zeros((11, n), dtype=q.dtype), q,
-                              q.clone(), torch.ones(n, dtype=q.dtype))
+        fused_mod.fused_stage(csr, boundary_rows(torch.zeros(
+            (11, n), dtype=q.dtype)), q, q.clone(),
+            torch.ones(n, dtype=q.dtype))
     assert lib.calls == ["mgcfd_edge_csr"] * 3 + ["mgcfd_fused_stage"]
 
 

@@ -15,7 +15,7 @@ from mgcfd_tpu.mesh.unstructured import \
     generate_unstructured_hierarchy as jax_tet
 from mgcfd_tpu.parallel import partition as jax_part
 from mgcfd_tpu_torch.convert import mesh_from_arrays
-from mgcfd_tpu_torch.kernels import DeviceCSR, edge_csr
+from mgcfd_tpu_torch.kernels import DeviceCSR, boundary_rows, edge_csr
 from mgcfd_tpu_torch.kernels.fused_stage import fused_stage
 from mgcfd_tpu_torch.mesh import generate_multigrid_box
 from mgcfd_tpu_torch.parallel import partition as part
@@ -198,7 +198,8 @@ def test_edge_csr_takes_a_wider_neighbour_space():
         with pytest.raises(ValueError, match="first columns"):
             edge_csr.flux(narrow, blk)
         with pytest.raises(ValueError, match="coincide"):
-            fused_stage(csr, torch.zeros((11, sl.block), dtype=q.dtype),
+            fused_stage(csr, boundary_rows(torch.zeros((11, sl.block),
+                                                       dtype=q.dtype)),
                         comb, blk, torch.ones(sl.block, dtype=q.dtype))
 
 

@@ -30,7 +30,8 @@ from mgcfd_tpu.solver import MGCFDSolver as JaxSolver
 from mgcfd_tpu_torch.convert import mesh_from_arrays
 from mgcfd_tpu_torch.core.config import SolverConfig
 from mgcfd_tpu_torch import kernels
-from mgcfd_tpu_torch.kernels import DeviceShift, build, edge_csr, shift
+from mgcfd_tpu_torch.kernels import (DeviceShift, boundary_rows, build,
+                                     edge_csr, shift)
 from mgcfd_tpu_torch.ops import internal_edge_flux, tops
 from mgcfd_tpu_torch.prep.shift import build_shift_plan, shift_flux
 from mgcfd_tpu_torch.solver import MGCFDSolver
@@ -180,7 +181,8 @@ def test_fused_stage_matches_pallas(box_level, with_spill, plant):
                            None if spill is None else jnp.asarray(spill))
     want = np.asarray(want)[:, :n]
     got, got_inv = shift.fused_stage(
-        _device_shift(plan, n), tt(np.concatenate([bdn, wln, wlc])),
+        _device_shift(plan, n),
+        boundary_rows(tt(np.concatenate([bdn, wln, wlc]))),
         tt(q[:, :n]), tt(old[:, :n]), tt(fac[:n]),
         None if spill is None else tt(spill[:, :n]))
     assert int(got_inv) == int(want_inv)
@@ -222,8 +224,10 @@ def test_wrappers_never_take_the_plain_version_for_card_tensors(
             w(sh, q)
         assert kernels.launch_counts()[w.name] == 0
     with pytest.raises(RuntimeError, match="CUDA error 700"):
-        shift.fused_stage(sh, torch.zeros((11, n), dtype=q.dtype), q,
-                          q.clone(), torch.ones(n, dtype=q.dtype), q.clone())
+        shift.fused_stage(sh, boundary_rows(torch.zeros((11, n),
+                                                        dtype=q.dtype)),
+                          q, q.clone(), torch.ones(n, dtype=q.dtype),
+                          q.clone())
     assert kernels.launch_counts()[shift.fused_stage.name] == 0
     assert calls == ["mgcfd_shift_flux"] * 2 + ["mgcfd_shift_fused_stage"]
 
@@ -237,8 +241,9 @@ def test_wrappers_check_operands(box_level):
         shift.flux(sh, torch.ones((n, 5), dtype=torch.float64))
     q = torch.ones((5, n), dtype=torch.float64)
     with pytest.raises(ValueError, match="spill"):
-        shift.fused_stage(sh, torch.zeros((11, n), dtype=q.dtype), q, q,
-                          torch.ones(n, dtype=q.dtype), q[:, :-1])
+        shift.fused_stage(sh, boundary_rows(torch.zeros((11, n),
+                                                        dtype=q.dtype)),
+                          q, q, torch.ones(n, dtype=q.dtype), q[:, :-1])
     meta = DeviceShift(n, sh.deltas, sh.w.to("meta"))
     with pytest.raises(ValueError, match="device"):
         shift.flux(meta, torch.empty((5, n), device="meta",

@@ -142,10 +142,10 @@ def test_visit_takes_the_plain_stage_factors(accumulate, fused):
     q = q0
     for j in range(RK):
         if fused and accumulate == "window":
-            q, _ = fused_stage(lvl.csr, lvl.nc, q, q0,
+            q, _ = fused_stage(lvl.csr, lvl.boundary, q, q0,
                                sf / float(RK + 1 - j))
         elif fused:
-            q, _ = shift.fused_stage(lvl.shift, lvl.nc, q, q0,
+            q, _ = shift.fused_stage(lvl.shift, lvl.boundary, q, q0,
                                      sf / float(RK + 1 - j))
         else:
             q = tops.t_time_step(j, sf, t_compute_fluxes(lvl, q, s.config),
