@@ -1,8 +1,8 @@
-"""The benchmark's inputs, in numpy: a frozen copy of the port's box
-level, the hierarchies the configurations size level by level, frozen
-copies of the port's RCM renumbering and mesh duplication, the reference's
-.dat writer and reader, and make.ensure, which writes a configuration's
-mesh files into a fixed cache directory once. Nothing here imports the
-port: a change to the port's generators cannot change the benchmark's
-meshes.
+"""The benchmark's inputs, in numpy: frozen copies of the port's box level
+and of its median-dual tetrahedral level, the hierarchies the
+configurations size level by level from either generator, frozen copies
+of the port's RCM renumbering and mesh duplication, the reference's .dat
+writer and reader, and make.ensure, which writes a configuration's mesh
+files into a fixed cache directory once. Nothing here imports the port:
+a change to the port's generators cannot change the benchmark's meshes.
 """

@@ -5,6 +5,13 @@ renumbers it when asked, and writes it into `directory` (a fixed path
 inside the checkout), with the spec beside it in mesh.json. A later call
 with the same spec finds the files and writes nothing: every run of a
 cell after the first reads the same bytes.
+
+Two generators, each with its own keys:
+  box  structured box levels of the (nx, ny, nz) nodes each level lists
+       (inputs/box.py), degree 6;
+  tet  unstructured tetrahedral median-dual levels over jittered grids of
+       the (nx, ny, nz) points each level lists (inputs/tet.py), about 7
+       internal edges a node.
 """
 from __future__ import annotations
 
@@ -15,33 +22,52 @@ import shutil
 from .box import generate_box_hierarchy
 from .datfiles import write_hierarchy
 from .rcm import renumber_hierarchy
+from .tet import generate_tet_hierarchy
 
 STAMP = "mesh.json"
-# a configuration's "mesh" entry: every key is read, and no other
-KEYS = {"generator", "levels", "h", "volume_jitter", "seed", "variant",
-        "order"}
+# a configuration's "mesh" entry, by generator: every key is read, and no
+# other
+KEYS = {
+    "box": {"generator", "levels", "h", "volume_jitter", "seed", "variant",
+            "order"},
+    "tet": {"generator", "levels", "h", "jitter", "wall_frac", "seed",
+            "variant", "order"},
+}
+# structured: the generator's own order ((i, j, k) for the box, shuffled
+# by the seed for the tet, as an imported mesh arrives); rcm: renumbered
 ORDERS = ("structured", "rcm")
 
 
 def check_spec(spec: dict) -> None:
     """ValueError unless the entry names a known generator and order with
-    exactly the keys that generate() reads."""
-    if set(spec) != KEYS:
-        raise ValueError(f"mesh keys {sorted(set(spec) ^ KEYS)} missing "
-                         f"or not read (the keys are {sorted(KEYS)})")
-    if spec["generator"] != "box" or spec["order"] not in ORDERS:
-        raise ValueError(f"unknown generator {spec['generator']!r} or "
-                         f"order {spec['order']!r} (box; {ORDERS})")
+    exactly the keys that generate() reads for that generator."""
+    gen = spec.get("generator")
+    if not isinstance(gen, str) or gen not in KEYS:
+        raise ValueError(f"unknown generator {gen!r} (the generators are "
+                         f"{sorted(KEYS)})")
+    keys = KEYS[gen]
+    if set(spec) != keys:
+        raise ValueError(f"{gen} mesh keys {sorted(set(spec) ^ keys)} "
+                         f"missing or not read (the keys are "
+                         f"{sorted(keys)})")
+    if spec["order"] not in ORDERS:
+        raise ValueError(f"unknown order {spec['order']!r} ({ORDERS})")
 
 
 def generate(spec: dict):
-    """The hierarchy of a configuration's "mesh" entry: the box's levels
-    at the sizes it lists, in the (i, j, k) order or RCM-renumbered as
-    an unstructured mesh is before it is written."""
+    """The hierarchy of a configuration's "mesh" entry: the generator's
+    levels at the sizes it lists, in the generator's order or
+    RCM-renumbered as an unstructured mesh is before it is written."""
     check_spec(spec)
-    mesh = generate_box_hierarchy(
-        spec["levels"], h=tuple(spec["h"]), variant=spec["variant"],
-        volume_jitter=spec["volume_jitter"], seed=spec["seed"])
+    if spec["generator"] == "box":
+        mesh = generate_box_hierarchy(
+            spec["levels"], h=tuple(spec["h"]), variant=spec["variant"],
+            volume_jitter=spec["volume_jitter"], seed=spec["seed"])
+    else:
+        mesh = generate_tet_hierarchy(
+            spec["levels"], h=tuple(spec["h"]), jitter=spec["jitter"],
+            wall_frac=spec["wall_frac"], seed=spec["seed"],
+            variant=spec["variant"])
     return renumber_hierarchy(mesh) if spec["order"] == "rcm" else mesh
 
 

@@ -1,5 +1,6 @@
 """Tiny configurations for the CPU tests: the box and RCM hierarchies at
-a few hundred nodes, with the limits of the full-size configurations."""
+a few hundred nodes, with the limits of the full-size configurations, and
+a tetrahedral one (no configuration file has the tet generator yet)."""
 import copy
 import json
 import os
@@ -10,6 +11,7 @@ import pytest
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = os.path.dirname(HERE)
 TINY_LEVELS = [[10, 9, 11], [8, 7, 9], [6, 6, 7]]
+TINY_TET_LEVELS = [[10, 9, 11], [7, 6, 8], [5, 5, 6]]
 
 
 def tiny_config(kind: str) -> dict:
@@ -18,6 +20,22 @@ def tiny_config(kind: str) -> dict:
     cfg["name"] = f"tiny{kind}"
     cfg["mesh"]["levels"] = TINY_LEVELS
     cfg["nodes"] = [int(np.prod(d)) for d in TINY_LEVELS]
+    return cfg
+
+
+def tet_spec(order: str = "rcm") -> dict:
+    """A "mesh" entry of the tet generator at TINY_TET_LEVELS."""
+    return {"generator": "tet", "levels": TINY_TET_LEVELS, "h": [0.1] * 3,
+            "jitter": 0.35, "wall_frac": 0.2, "seed": 0,
+            "variant": "m6wing", "order": order}
+
+
+def tiny_tet_config() -> dict:
+    """m6rcm's configuration over a tiny tet hierarchy in RCM order."""
+    cfg = tiny_config("rcm")
+    cfg["name"] = "tinytet"
+    cfg["mesh"] = tet_spec()
+    cfg["nodes"] = [int(np.prod(d)) for d in TINY_TET_LEVELS]
     return cfg
 
 

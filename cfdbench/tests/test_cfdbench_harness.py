@@ -1,8 +1,9 @@
 """The harness is driven by data: in a copy of cfdbench/ with new
-configurations (one duplicated, as the app's -m does), a mix and a
-metric reader added as files (no existing file edited), a run finds and
-runs them on a tiny mesh, its traced run reads every per-layer metric
-the cell lists, and its last line parses against the result's contract.
+configurations (one duplicated, as the app's -m does, one over the
+tetrahedral generator), a mix and a metric reader added as files (no
+existing file edited), a run finds and runs them on a tiny mesh, its
+traced run reads every per-layer metric the cell lists, and its last line
+parses against the result's contract.
 A listed metric that reads nothing, or a configuration key the harness
 does not apply, fails the run. Without a card a run fails: it exits 2
 and prints no result, and never falls back to the CPU."""
@@ -15,7 +16,7 @@ import sys
 
 import pytest
 
-from cfdbench.tests.conftest import PKG, tiny_config
+from cfdbench.tests.conftest import PKG, tiny_config, tiny_tet_config
 
 REPO = os.path.dirname(PKG)
 # a run with the card replaced by the CPU (tests/hostcard.py), from a
@@ -61,7 +62,8 @@ def copy(tmp_path_factory):
     before = digest(root / "cfdbench")
     configs = root / "cfdbench" / "configs"
     for cfg in (config("newrcm"), config("newrcm2", duplicate=2),
-                config("newbad", mesh_duplicate_count=8)):
+                config("newbad", mesh_duplicate_count=8),
+                tiny_tet_config() | {"name": "newtet"}):
         (configs / f"{cfg['name']}.json").write_text(json.dumps(cfg))
     (root / "cfdbench" / "mixes" / "graph5.json").write_text(json.dumps({
         "entry": "run_batched",
@@ -74,10 +76,10 @@ def copy(tmp_path_factory):
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
         bench = json.load(f)
     new = [("newrcm", "graph5"), ("newrcm2", "graph5"), ("newbad", "graph5"),
-           ("newrcm", "run"), ("newrcm2", "graph")]
+           ("newrcm", "run"), ("newrcm2", "graph"), ("newtet", "graph5")]
     bench["workloads"] += [
         {"name": f"{c}.{t}", "config": c, "traffic": t, "chips": 1,
-         "why": f"a tiny RCM box under {t}"} for c, t in new]
+         "why": f"a tiny {c} mesh under {t}"} for c, t in new]
     graphs = [f"{c}.{t}" for c, t in new if t != "run"]
     for m in bench["end_to_end"]:
         if m["name"] == "cycle_ms":
@@ -87,7 +89,8 @@ def copy(tmp_path_factory):
         "bound": 0.25, "source": "host_clock", "workloads": ["newrcm.run"]})
     for m in bench["per_layer"]:
         if m["name"] in ON_HOST:
-            m["workloads"] += ["newrcm.graph5", "newrcm2.graph5"]
+            m["workloads"] += ["newrcm.graph5", "newrcm2.graph5",
+                               "newtet.graph5"]
         if m["name"] == "flux_roofline":
             m["workloads"].append("newrcm2.graph")
     bench["per_layer"].append({
@@ -148,6 +151,17 @@ def test_new_files_are_found_and_run(copy, cell, trace, metrics):
     if trace:
         assert line["device"]["busy_s"] > 0
         assert len(line["breakdown"]["device_ops"]) > 0
+
+
+@pytest.mark.parametrize("trace,metrics", [(0, {"cycle_ms", "setup_s"}),
+                                           (1, set(ON_HOST))])
+def test_a_tet_configuration_added_as_a_file_runs(copy, trace, metrics):
+    r = run(copy, "--workload", "newtet.graph5", "--seed",
+            str(2 ** 31 + 29), "--seconds", "0.3", "--trace", str(trace))
+    line = parse(r)
+    assert line["correct"] is True
+    assert set(line["metrics"]) == metrics
+    assert record(r)["nodes"] == tiny_tet_config()["nodes"]
 
 
 def test_a_listed_metric_that_reads_nothing_fails_the_run(copy):

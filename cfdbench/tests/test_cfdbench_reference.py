@@ -1,21 +1,25 @@
 """The fp64 reference V-cycle agrees with the port's CPU path (the plain
-edge-stream ops) on a small box in (i, j, k) and in RCM order, read from
-the same files by each side's own reader."""
+edge-stream ops) on a small box in (i, j, k) and in RCM order, and on a
+small tetrahedral hierarchy in RCM order (nearest-node maps that leave
+coarse nodes without a child), read from the same files by each side's
+own reader."""
 import numpy as np
+import pytest
 
 from cfdbench.inputs.datfiles import read_hierarchy
 from cfdbench.inputs.make import ensure
 from cfdbench.reference import ReferenceSolver
 from cfdbench.state import initial_state
-from cfdbench.tests.conftest import tiny_config
+from cfdbench.tests.conftest import tiny_config, tiny_tet_config
 
 from mgcfd_tpu_torch.core.config import SolverConfig
 from mgcfd_tpu_torch.mesh.io_dat import load_multigrid_mesh
 from mgcfd_tpu_torch.solver import MGCFDSolver
 
 
+@pytest.mark.parametrize("kind", ["box", "rcm", "tet"])
 def test_reference_agrees_with_the_port(kind, tmp_path):
-    cfg = tiny_config(kind)
+    cfg = tiny_tet_config() if kind == "tet" else tiny_config(kind)
     path = ensure(cfg["mesh"], str(tmp_path / "mesh"))
     mesh = load_multigrid_mesh(path)
     s0 = initial_state([lv.num_nodes for lv in mesh.levels], 5,
