@@ -70,7 +70,8 @@ RW_LONG_ROW = 10   # kRwLongRow
 RW_TILE_ROWS = 256
 RW_GROUPS = {RW_GROUP8: (8, 1), RW_GROUP8X2: (8, 2)}
 # flux mode's shapes (csrc/edge_csr.cu FluxShape): a thread per row; a
-# block per tile of FLUX_TILE_ROWS rows (csrc/csr_tile.cuh kTileRows)
+# block per tile of FLUX_TILE_ROWS rows (csrc/csr_tile.cuh kTileRows, the
+# fused stage's tiles too)
 FLUX_ROW, FLUX_TILE = range(2)
 FLUX_SHAPES = {FLUX_ROW: "row", FLUX_TILE: "tile"}
 FLUX_TILE_ROWS = 128

@@ -19,9 +19,14 @@ stage_outputs): the count added into the caller's counter, and, for the
 last RK stage, the residual q_next - old from the stored values. Each
 launch that carries one is counted under epilogue.invalid or
 epilogue.residual (stage_epilogues).
+
+The kernel completes each tile's own nodes once, in shared memory, and any
+other neighbour again from device memory: tile_local_entries counts a
+CSR's entries of the first kind.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import build, edge_csr
@@ -78,6 +83,14 @@ def stage_outputs(qnew, old, count=None, residual: bool = False):
         return out, count
     return out, count, (out.to(qnew.dtype) - old.to(qnew.dtype)).to(
         old.dtype)
+
+
+def tile_local_entries(plan) -> int:
+    """The entries of an owner CSR (a CSRPlan) whose column lies in its
+    owner row's tile of FLUX_TILE_ROWS rows: the neighbours the kernel
+    reads from the nodes its block completed in shared memory."""
+    rows = edge_csr.FLUX_TILE_ROWS
+    return int(np.count_nonzero(plan.col // rows == plan.owner // rows))
 
 
 def new_count(device):

@@ -70,7 +70,8 @@ from ..core.types import MultigridMesh
 from .. import kernels
 from ..kernels import (BoundaryRows, DeviceCSR, DeviceShift, boundary_rows,
                        edge_csr, shift)
-from ..kernels.fused_stage import fused_stage, invalid_count
+from ..kernels.fused_stage import fused_stage, invalid_count, \
+    tile_local_entries
 from ..kernels.step_factor import StepScratch
 from ..mesh.build import apply_ewt_conditioning
 from ..ops import (accumulate_flux, boundary_edge_flux, calc_rms,
@@ -220,6 +221,9 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
     plan cache (config.plan_cache_dir). The constants of a fused stage are
     compacted to the rows of the nodes with a boundary or wall face,
     counted over the levels as boundary.rows.stored of boundary.rows.all.
+    The owner CSR of the window path's stages is counted over the levels
+    as window.entries.local, the entries whose neighbour lies in the
+    owner's tile (fused_stage.tile_local_entries), of window.entries.all.
     Every float64 host array is cast as mgcfd_tpu casts it (torch rounds
     float64 -> bfloat16 through float32, as jnp.asarray and ml_dtypes
     do)."""
@@ -269,6 +273,8 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
                                       np.asarray([lv.num_nodes])),
                 lambda lv=lv: build_flux_csr(lv))
             d.csr = upload(lambda: DeviceCSR.from_plan(csr, device, dtype))
+            spans.count("window.entries.local", tile_local_entries(csr))
+            spans.count("window.entries.all", csr.num_entries)
         if mode in ("pallas", "shift"):
             plan = plans[li]
             d.shift = upload(lambda: DeviceShift.from_plan(

@@ -23,7 +23,9 @@ package gives its wrappers' own launch counts as launches.<wrapper>, so
 that this module imports no layer above it. Counters kept:
 plans.loaded.<kind> and plans.built.<kind> (prep/plancache.py),
 plans.key_bytes, upload.bytes, graph.captures, library.builds,
-mesh.reads.native and mesh.reads.python (mesh/io_dat.py).
+mesh.reads.native and mesh.reads.python (mesh/io_dat.py),
+boundary.rows.stored and .all, window.entries.local and .all
+(solver/solver.py prepare_device_mesh).
 
 The store is written by the thread that drives the solver; spans do not
 nest across threads.
