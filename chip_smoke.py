@@ -444,6 +444,69 @@ def hold_stage_epilogues(name, kernel, plain, args, q, old, dt) -> None:
             f"to the eager ops; count {added} into the int64 counter")
 
 
+def hold_stage_primitives(name, L, q, old, fac, dt) -> None:
+    """fused_stage as the solver's visits launch it on a level with
+    buffers of stored primitives: the step factor's first pass stores q's
+    (prims_out), the stage gathers them (prims_in), stores its new
+    state's and adds its count into an int64 counter, with the residual.
+    The factors, and the state, residual and count, bit-equal to the same
+    launches without the primitives; the stage's stored primitives
+    bit-equal to what the step factor's pass stores of that new state,
+    which the next stage gathers; against the plain versions given the
+    same operands, the state (check_cases), both stored buffers
+    (check_cases in the compute type) and the count; again with a planted
+    NaN, rho < 0 and E < 0 (bits and counts only), the count then above
+    0."""
+    import torch
+    from mgcfd_tpu_torch.kernels.edge_csr import compute_dtype
+    from mgcfd_tpu_torch.kernels.fused_stage import (fused_stage,
+                                                     fused_stage_plain,
+                                                     primitive_buffers,
+                                                     primitives)
+    from mgcfd_tpu_torch.kernels.step_factor import step_factor
+    n, dev = L.num_nodes, q.device
+    for label, x in (("", q), (" planted", planted(q))):
+        what = f"{name}+primitives{label}"
+        p_in, p_out = primitive_buffers(n, dt, dev)
+        p_next, pp_out = primitive_buffers(n, dt, dev)
+        count, bcount, pcount = (torch.zeros(1, dtype=torch.int64,
+                                             device=dev) for _ in range(3))
+        f_prim = step_factor(x, L.volumes, L.cbrt_volumes, False, L.step,
+                             prims_out=p_in)
+        f_bare = step_factor(x, L.volumes, L.cbrt_volumes, False, L.step)
+        k, _, kres = fused_stage(L.csr, L.boundary, x, old, fac, count,
+                                 residual=True, prims_in=p_in,
+                                 prims_out=p_out)
+        bare, _, bres = fused_stage(L.csr, L.boundary, x, old, fac, bcount,
+                                    residual=True)
+        step_factor(k, L.volumes, L.cbrt_volumes, False, L.step,
+                    prims_out=p_next)
+        pp_in = primitives(x)
+        p, _, _ = fused_stage_plain(L.csr, L.boundary, x, old, fac, pcount,
+                                    residual=True, prims_in=pp_in,
+                                    prims_out=pp_out)
+        torch.cuda.synchronize()
+        require(same_bits(f_prim, f_bare), f"{what} {dt}: the step "
+                "factor's factors differ with its primitives stored")
+        require(same_bits(k, bare) and same_bits(kres, bres)
+                and int(count) == int(bcount),
+                f"{what} {dt}: the state, residual or count differ from the "
+                "same launch completing every node")
+        require(same_bits(p_out, p_next), f"{what} {dt}: the stored "
+                "primitives differ from the step factor's of the new state "
+                f"at {int((p_out != p_next).sum())} of {p_out.numel()}")
+        require(int(count) == int(pcount) and (int(count) > 0) == bool(label),
+                f"{what} {dt}: counts {int(count)} / {int(pcount)}")
+        if not label:
+            check_cases([(what, k, p)], dt)
+            check_cases([(f"{what} stored q", p_in, pp_in),
+                         (f"{what} stored out", p_out, pp_out)],
+                        compute_dtype(dt))
+        log(f"check {what:30s} {str(dt):14s} factors, state, residual and "
+            f"count bit-equal to the launches without; stored bit-equal to "
+            f"the step pass's of the state; count {int(count)}")
+
+
 def wsum_epilogue_case(label: str, kern, csr, x, dt, keep=None,
                        correct=None):
     """A wsum transfer as the solver's visits launch it, with its
@@ -677,7 +740,8 @@ def check_csr_kernels(solvers) -> None:
     """Each CSR kernel against its plain version at level-0 shapes, and
     fused_stage and the wsum transfers at every level's, for each
     solver's dtype: also as the solver's visits launch them, with their
-    epilogues (hold_stage_epilogues, wsum_epilogue_case)."""
+    epilogues (hold_stage_epilogues, wsum_epilogue_case), and fused_stage
+    with the stored primitives at every level (hold_stage_primitives)."""
     from mgcfd_tpu_torch.kernels import edge_csr
     from mgcfd_tpu_torch.kernels.fused_stage import (fused_stage,
                                                      fused_stage_plain)
@@ -749,6 +813,8 @@ def check_csr_kernels(solvers) -> None:
                                  fused_stage_plain,
                                  lambda x: (L.csr, L.boundary, x, oldl, facl), ql,
                                  oldl, dt)
+            hold_stage_primitives(f"fused_stage L{lev}", L, ql, oldl, facl,
+                                  dt)
 
 
 def same_bits(a, b) -> bool:
@@ -1094,7 +1160,7 @@ def refuse_unknown_dtype(lib) -> None:
                                              None, None, None),
         "mgcfd_fused_stage": lib.mgcfd_fused_stage(
             7, None, None, None, 0, None, None, None, None, None, None, 0,
-            None, None, None, 1, None),
+            None, None, None, None, None, 1, None),
         "mgcfd_shift_flux": lib.mgcfd_shift_flux(
             7, 0, ctypes.addressof(deltas), 1, None, None, None, 1, None),
         "mgcfd_shift_flux_at": lib.mgcfd_shift_flux_at(
@@ -1120,7 +1186,7 @@ def refuse_unknown_dtype(lib) -> None:
             None, None, None, None, None, None, None, 0, None, None, None,
             None, 1, None),
         "mgcfd_step_factor": lib.mgcfd_step_factor(
-            7, 0, None, None, None, None, 0, None, None, 1, None),
+            7, 0, None, None, None, None, 0, None, None, None, 1, None),
     }
     log(f"dtype code 7 refused: {rcs}")
     require(all(rc != 0 for rc in rcs.values()),
@@ -1306,15 +1372,27 @@ def check_library(name: str, lfn, pfn, dt) -> None:
 
 def window_rows(W0, q, old, fac, res1, run: str, transfer_run: str):
     """time_rows rows of the CSR kernels at level 0 of a 'window' solver:
-    fused_stage and edge_csr.rw (launches from the `run` path's run), the
-    restriction and the prolongation (from `transfer_run`'s)."""
+    fused_stage (with the stored primitives where the level has buffers)
+    and edge_csr.rw (launches from the `run` path's run), the restriction
+    and the prolongation (from `transfer_run`'s)."""
     import torch
     from mgcfd_tpu_torch.kernels import edge_csr
     from mgcfd_tpu_torch.kernels.fused_stage import (fused_stage,
-                                                     fused_stage_plain)
+                                                     fused_stage_plain,
+                                                     primitive_buffers)
+    from mgcfd_tpu_torch.kernels.step_factor import step_factor
     from mgcfd_tpu_torch.monitor.costs import edge_csr_cost, fused_stage_cost
     plain = edge_csr.edge_csr_plain
     sz = q.element_size()
+    # fused_stage with the operands the solver's second RK stage gives
+    # level 0 where the level has buffers: q's primitives as the step
+    # factor's first pass stores them, and a buffer for the new state's
+    prims = {}
+    if W0.prims is not None:
+        p_in, p_out = primitive_buffers(W0.num_nodes, q.dtype, q.device)
+        step_factor(q, W0.volumes, W0.cbrt_volumes, False, W0.step,
+                    prims_out=p_in)
+        prims = {"prims_in": p_in, "prims_out": p_out}
     sp_r, sp_p = sparse_csr(W0.restrict_csr), sparse_csr(W0.prolong_csr)
     xf_t, rc_t = q.T.contiguous(), res1.T.contiguous()
     lib_crw = csr_rw_library(W0.csr, q)
@@ -1334,9 +1412,10 @@ def window_rows(W0, q, old, fac, res1, run: str, transfer_run: str):
          lambda: torch.sparse.mm(sp_p, rc_t),
          *edge_csr_cost("wsum", W0.prolong_csr, sz)),
         ("fused_stage", "fused_stage", run,
-         lambda: fused_stage(W0.csr, W0.boundary, q, old, fac)[0],
-         lambda: fused_stage_plain(W0.csr, W0.boundary, q, old, fac)[0], None,
-         *fused_stage_cost(W0.csr, W0.boundary, sz)),
+         lambda: fused_stage(W0.csr, W0.boundary, q, old, fac, **prims)[0],
+         lambda: fused_stage_plain(W0.csr, W0.boundary, q, old, fac,
+                                   prims_in=prims.get("prims_in"))[0], None,
+         *fused_stage_cost(W0.csr, W0.boundary, sz, **prims)),
         ("edge_csr.rw", "edge_csr", run,
          lambda: edge_csr.rw(W0.csr, q), lambda: plain("rw", W0.csr, q),
          lib_crw, *edge_csr_cost("rw", W0.csr, sz)),

@@ -2,7 +2,7 @@
 the box flagship's shapes and two RCM-ordered tets' CSRs.
 
     python mgcfd_tpu_torch/bench/kernel_ab.py [--parent TREE] [--out DIR]
-        [--shapes]
+        [--shapes] [--only NAME[,NAME]] [--levels NPZ[,NPZ]]
 
 TREE is the root of another checkout of the repository, for example an
 earlier commit unpacked with `git archive <commit> mgcfd_tpu_torch | tar
@@ -31,14 +31,29 @@ operands can be compared:
     with the solver's update around it, as eager ops (suffix +eager: the
     restriction's torch.where of the rows with entries, the
     prolongation's vars + (res - P)) and, where the wrappers take them,
-    as the kernel's epilogue (suffix +epilogue).
+    as the kernel's epilogue (suffix +epilogue);
+  - with --levels, one level visit's four launches on each level of each
+    .npz given (suffix .<the file's stem>; a configuration's levels as
+    cfdbench/level_npz.py writes them): the step factor (visit.step) and
+    the three fused RK stages
+    (visit.stage1-3), each from the input the launch before it gave, as
+    the solver chains them; where the tree's wrappers take the stored
+    primitives (kernels/fused_stage.py primitives) with them, the step
+    factor's first pass and the first two stages storing them into a
+    buffer and each stage gathering what the launch before it stored,
+    each row from a buffer of its own, so that a row can be launched
+    again alone; each held to the same launch without them (the "plain"
+    column), and again from a state with invalid values planted (+bad).
 The processes run in turns, parent, new, new, parent (new alone without
 --parent), after both trees' kernels are built in parallel.
 
 What each process does, for fp32, bf16 and fp64:
   1. on its tree's first turn, prints nvcc -Xptxas -v for the kernels'
      sources (registers, spills, shared memory), the whole report into
-     --out (default build/kernel_ab);
+     --out (default build/kernel_ab), and the SASS of each fused_stage
+     kernel, its instructions counted by kind (loads, the special-function
+     unit's, calls of the divide and square-root slow paths, float
+     operations), the listing into --out too;
   2. holds each kernel to its plain version (the share of bit-equal
      elements, the largest difference; for the stage kernels the invalid
      counts) and two launches to each other; a +epilogue row to its
@@ -93,6 +108,10 @@ RECORD = "KERNEL_AB "
 TETS = {".tet64": ((64, 64, 64, 4), 0), ".tetflag": ((68, 64, 70, 4), 1)}
 # CSR plan fields kept per level in a tet's .npz
 PLAN_KEYS = ("num_rows", "num_cols", "row_ptr", "owner", "col", "w")
+# SASS opcodes counted per fused_stage kernel, by kind
+SASS_KINDS = {"ldg": ("LDG",), "mufu": ("MUFU",), "call": ("CALL",),
+              "fp32": ("FFMA", "FMUL", "FADD", "FSETP", "FSEL"),
+              "fp64": ("DFMA", "DMUL", "DADD", "DSETP")}
 # level 0's flux CSR is also timed with each row cut to its first FIRST
 # entries (suffix FIRST_SUFFIX), the box's row length: the row kernel's
 # time per entry there against the full rows' tests whether the row
@@ -134,6 +153,47 @@ def ptxas_report(build, label: str, out: Path | None) -> None:
     if out is not None:
         out.mkdir(parents=True, exist_ok=True)
         (out / f"ptxas_{label}.txt").write_text("\n".join(text))
+
+
+def sass_report(build, label: str, out: Path | None) -> None:
+    """The SASS of fused_stage.cu (cuobjdump -sass of its cubin): each
+    kernel's instructions, all and by SASS_KINDS, one line a kernel; the
+    listing into out."""
+    cubin = (out or TREE / "build" / "kernel_ab") / f"fused_stage_{label}.cubin"
+    cubin.parent.mkdir(parents=True, exist_ok=True)
+    r = subprocess.run(
+        [build._nvcc(), *[f for f in build.NVCC_FLAGS
+                          if f not in ("-shared", "-Xcompiler", "-fPIC")],
+         "-cubin", "-o", str(cubin), str(build.CSRC / "fused_stage.cu")],
+        capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise RuntimeError(r.stderr)
+    dump = subprocess.run(
+        [str(Path(build._nvcc()).parent / "cuobjdump"), "-sass",
+         str(cubin)], capture_output=True, text=True, timeout=300)
+    if dump.returncode != 0:
+        raise RuntimeError(dump.stderr)
+    if out is not None:
+        (out / f"sass_fused_stage_{label}.txt").write_text(dump.stdout)
+    counts, name = {}, None
+    for line in dump.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = dict.fromkeys(("all", *SASS_KINDS), 0)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                     line)
+        if name is None or m is None:
+            continue
+        op = m.group(1)
+        c = counts[name]
+        c["all"] += 1
+        for kind, ops in SASS_KINDS.items():
+            c[kind] += op in ops
+    for name, c in counts.items():
+        print(f"{label} sass {name}: " + ", ".join(f"{k} {v}"
+                                                   for k, v in c.items()))
 
 
 def event_ms(fn, reps: int) -> float:
@@ -270,6 +330,155 @@ def stage_rows(dt, lev, lv, splan, cplan, nc64, q64, dev):
                              lambda k=kern, x=x: epilogue(k, x),
                              lambda k=kern, x=x: eager(k, x),
                              None if nb is None else nb + tail))
+    return rows
+
+
+def takes_primitives(fn) -> bool:
+    """Whether a wrapper of this tree takes the stored primitives."""
+    import inspect
+    params = inspect.signature(fn).parameters
+    return "prims_in" in params or "prims_out" in params
+
+
+def visits_only(only) -> bool:
+    """Whether every name asked for with --only is a visit row's."""
+    return all(o.startswith("visit") for o in only)
+
+
+def level_files(args) -> list:
+    """The .npz files given with --levels."""
+    return [Path(f) for f in args.levels.split(",") if f]
+
+
+def visit_rows(dt, suffix, lev, z, dev):
+    """One level visit's launches (the module docstring's visit rows) on
+    level lev of a cell's .npz z: (name, level, kernel, plain, bytes);
+    kernel and plain return the launch's outputs (the step factor's RK
+    factors; a stage's new state and count, the last one's residual too),
+    plain the same launch without the primitives."""
+    import numpy as np
+    import torch
+    from mgcfd_tpu_torch.core.constants import RK, far_field_state
+    from mgcfd_tpu_torch.kernels.edge_csr import compute_dtype
+    from mgcfd_tpu_torch.kernels.fused_stage import fused_stage
+    from mgcfd_tpu_torch.kernels.step_factor import StepScratch, step_factor
+    d = {k: z[f"{lev}f_{k}"] for k in PLAN_KEYS}
+    d["num_rows"], d["num_cols"] = int(d["num_rows"]), int(d["num_cols"])
+    from mgcfd_tpu_torch.kernels import DeviceCSR
+    csr = DeviceCSR.from_plan(SimpleNamespace(
+        **d, num_entries=int(d["col"].shape[0])), dev, dt)
+    n = csr.num_rows
+    nc64 = z[f"{lev}_nc"]
+    nc, nc_bytes = stage_operand(nc64, dt, dev)
+    vol = torch.as_tensor(z[f"{lev}_volumes"]).to(dev, dt)
+    cbrt = torch.pow(vol, 1.0 / 3.0)
+    scratch = StepScratch(n, dt, dev)
+    sz = torch.empty((), dtype=dt).element_size()
+    csz = torch.empty((), dtype=compute_dtype(dt)).element_size()
+    prims = takes_primitives(fused_stage.__call__)
+    rng = np.random.default_rng(7 + lev)
+    q0 = torch.as_tensor(far_field_state(np.float64)[0][:, None]
+                         * (1.0 + 0.05 * rng.uniform(-1, 1, (5, n)))).to(
+        dev, dt)
+    bad = q0.clone()
+    edge = int(nc64.any(axis=0).argmax())
+    inner = int((~nc64.any(axis=0)).argmax())
+    bad[1, edge], bad[3, inner] = float("nan"), float("inf")
+    bad[0, inner], bad[4, edge] = -2.0, -2.0
+
+    def buf():
+        return torch.zeros((2, n), dtype=compute_dtype(dt), device=dev)
+
+    stage_bytes = 4 * (n + 1) + 4 * csr.num_entries \
+        + sz * 4 * csr.num_entries + sz * n * (5 + 5 + 1 + 5) + nc_bytes + 8
+    rows = []
+    # the stages' factors, from the sound state: the planted state's
+    # would be NaN at every node
+    fac = step_factor(q0, vol, cbrt, False, scratch)
+    for tag, q in (("", q0), ("+bad", bad)):
+        # the chain once: each launch's input, and the primitives stored
+        store = buf() if prims else None
+        kw = {"prims_out": store} if prims else {}
+        step_factor(q, vol, cbrt, False, scratch, **kw)
+        inputs, stored = [q], [store]
+        count = torch.zeros((), dtype=torch.int64, device=dev)
+        for j in range(RK - 1):
+            out_buf = buf() if prims else None
+            kw = {"prims_in": stored[-1], "prims_out": out_buf} \
+                if prims else {}
+            inputs.append(fused_stage(csr, nc, inputs[-1], q, fac[j],
+                                      count, **kw)[0])
+            stored.append(out_buf)
+        timed = tag == ""
+
+        def step(own=buf() if prims else None, q=q):
+            kw = {"prims_out": own} if own is not None else {}
+            return step_factor(q, vol, cbrt, False, scratch, **kw)
+
+        rows.append((f"visit.step{suffix}{tag}", lev, step,
+                     lambda q=q: step_factor(q, vol, cbrt, False, scratch),
+                     sz * n * 10 + (2 * csz * n if prims else 0)
+                     if timed else None))
+        for j in range(RK):
+            last = j == RK - 1
+            gather = stored[j]
+            own = buf() if prims and not last else None
+
+            def stage(j=j, gather=gather, own=own, last=last, x=inputs[j],
+                      q=q):
+                kw = {}
+                if gather is not None:
+                    kw["prims_in"] = gather
+                if own is not None:
+                    kw["prims_out"] = own
+                count = torch.zeros((), dtype=torch.int64, device=dev)
+                return fused_stage(csr, nc, x, q, fac[j], count,
+                                   residual=last, **kw)
+
+            def plain(j=j, last=last, x=inputs[j], q=q):
+                count = torch.zeros((), dtype=torch.int64, device=dev)
+                return fused_stage(csr, nc, x, q, fac[j], count,
+                                   residual=last)
+
+            nbytes = stage_bytes + sz * 5 * n * last \
+                + csz * 2 * n * ((gather is not None) + (own is not None))
+            rows.append((f"visit.stage{j + 1}{suffix}{tag}", lev, stage,
+                         plain, nbytes if timed else None))
+    return rows
+
+
+def cell_facts(path: Path) -> None:
+    """Print each level's rows, entries a row, tile-local share and
+    fused_stage.gather_sectors at float32 and float64 of a --levels
+    file."""
+    import numpy as np
+    import torch
+    from mgcfd_tpu_torch.kernels.edge_csr import FLUX_TILE_ROWS as rows
+    from mgcfd_tpu_torch.kernels.fused_stage import gather_sectors
+    z = np.load(path)
+    suffix = f".{path.stem}"
+    for lev in (int(v) for v in z["levels"]):
+        col = torch.as_tensor(z[f"{lev}f_col"]).to(torch.int32)
+        owner = torch.as_tensor(z[f"{lev}f_owner"]).long()
+        n = int(z[f"{lev}f_num_rows"])
+        local = float((col.long() // rows == owner // rows).double().mean())
+        sectors = [gather_sectors(SimpleNamespace(
+            col=col, owner=owner, w=torch.empty(0, dtype=dt)))
+            for dt in (torch.float32, torch.float64)]
+        print(f"cell{suffix} L{lev}: rows {n}, entries a row "
+              f"{len(col) / n:.2f}, tile-local {100 * local:.2f} %, "
+              f"sectors a load fp32 {sectors[0]:.2f} fp64 {sectors[1]:.2f}",
+              flush=True)
+
+
+def cell_rows(files, dt, dev):
+    """visit_rows of each --levels file at each of its levels."""
+    import numpy as np
+    rows = []
+    for path in files:
+        z = np.load(path)
+        for lev in z["levels"]:
+            rows += visit_rows(dt, f".{path.stem}", int(lev), z, dev)
     return rows
 
 
@@ -550,9 +759,12 @@ def run_side(args) -> int:
           f"CUDA {torch.version.cuda}", flush=True)
     if args.ptxas:
         ptxas_report(build, label, args.out)
+        sass_report(build, label, args.out)
     build.library()
 
-    mesh = flagship_mesh()
+    # the flagship's and the tets' rows unless only visit rows are asked
+    box = not visits_only(only)
+    mesh = flagship_mesh() if box else SimpleNamespace(levels=[])
     box_flux = [build_flux_csr(L) for L in mesh.levels]
     dev = torch.device("cuda")
     # each level's stage operands: span plan, flux CSR, nc and a state
@@ -576,7 +788,8 @@ def run_side(args) -> int:
     for tag, dt in zip(DTYPES, (torch.float32, torch.bfloat16,
                                 torch.float64)):
         levels = MGCFDSolver(mesh, SolverConfig(
-            dtype=str(dt).split(".")[-1], accumulate="pallas")).dmesh.levels
+            dtype=str(dt).split(".")[-1], accumulate="pallas")).dmesh.levels \
+            if box else []
 
         def state(m, seed, dt=dt):
             r = np.random.default_rng(seed)
@@ -586,11 +799,12 @@ def run_side(args) -> int:
 
         flux = [("", lev, DeviceCSR.from_plan(f, dev, dt))
                 for lev, f in enumerate(box_flux)]
-        tflux, tets = tet_csrs(args.tets, dt, dev)
+        tflux, tets = tet_csrs(args.tets, dt, dev) if box else ([], [])
         flux += tflux
         rows = [r for stage in stage_inputs
                 for r in stage_rows(dt, *stage, dev)] \
-            + level_rows(levels, flux, state) + wsum_rows(tets, state)
+            + level_rows(levels, flux, state) + wsum_rows(tets, state) \
+            + cell_rows(level_files(args), dt, dev)
         rows = [r for r in rows if r[0].startswith(only)]
         for name, lev, kfn, pfn, nbytes in rows:
             got, again, want = kfn(), kfn(), pfn()
@@ -621,7 +835,7 @@ def run_side(args) -> int:
                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                    "mbytes": nbytes / 1e6, "card": smi}
             print(RECORD + json.dumps(rec), flush=True)
-        if args.shapes and hasattr(edge_csr, "RW_SHAPES"):
+        if box and args.shapes and hasattr(edge_csr, "RW_SHAPES"):
             shape_sweep(label, tag, levels, flux,
                         flagship_transfers(levels) + tets, state, smi,
                         outputs, only)
@@ -695,11 +909,13 @@ def run_turns(args) -> int:
     with ProcessPoolExecutor(len(TETS), mp_context=spawn) as procs, \
             ThreadPoolExecutor(len(trees)) as pool:
         made = [procs.submit(make_tet, tet_path(work, suffix), *TETS[suffix])
-                for suffix in TETS]
+                for suffix in TETS if not visits_only(args.only.split(","))]
         for line in pool.map(prebuild, trees.values()):
             print(line, flush=True)
         for m in made:
             m.result()
+    for path in level_files(args):
+        cell_facts(path)
     records, saved, seen = [], {}, set()
     for turn, label in enumerate(order):
         save = work / f"outputs_{label}.pt"
@@ -713,6 +929,8 @@ def run_turns(args) -> int:
             cmd.append("--shapes")
         if args.only:
             cmd += ["--only", args.only]
+        if args.levels:
+            cmd += ["--levels", args.levels]
         r = subprocess.run(cmd, capture_output=True, text=True,
                            timeout=WORKER_TIMEOUT_S)
         sys.stderr.write(r.stderr[-4000:])
@@ -757,6 +975,10 @@ def main(argv=None) -> int:
                    help="only the kernels whose names start with NAME, "
                    "for example edge_csr.rw, or with one of a "
                    "comma-separated list of names")
+    p.add_argument("--levels", default="", metavar="NPZ",
+                   help="comma-separated .npz files of levels "
+                   "(cfdbench/level_npz.py) on which to time the visit "
+                   "rows")
     p.add_argument("--side", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--tree", type=Path, default=TREE, help=argparse.SUPPRESS)
     p.add_argument("--label", default="new", help=argparse.SUPPRESS)

@@ -96,21 +96,45 @@ struct State8 {
   T rho, mx, my, mz, E, p, s, inv;  // s = speed + speed of sound
 };
 
-// complete one node's conserved channels with its primitives
+// a node's conserved channels and 1/rho with its pressure; |v|^2 into
+// speed_sqd. Multiplies and adds only: the divide and the square roots
+// are complete8's.
 template <typename T>
-__device__ __forceinline__ State8<T> complete8(T rho, T mx, T my, T mz,
-                                               T E) {
+__device__ __forceinline__ State8<T> with_pressure(T rho, T mx, T my, T mz,
+                                                   T E, T inv,
+                                                   T& speed_sqd) {
   State8<T> q;
   q.rho = rho;
   q.mx = mx;
   q.my = my;
   q.mz = mz;
   q.E = E;
-  q.inv = T(1) / q.rho;
+  q.inv = inv;
   const T vx = q.mx * q.inv, vy = q.my * q.inv, vz = q.mz * q.inv;
-  const T speed_sqd = vx * vx + vy * vy + vz * vz;
+  speed_sqd = vx * vx + vy * vy + vz * vz;
   q.p = T(kGamma - 1.0) * (q.E - T(0.5) * q.rho * speed_sqd);
+  return q;
+}
+
+// complete one node's conserved channels with its primitives
+template <typename T>
+__device__ __forceinline__ State8<T> complete8(T rho, T mx, T my, T mz,
+                                               T E) {
+  T speed_sqd;
+  State8<T> q = with_pressure(rho, mx, my, mz, E, T(1) / rho, speed_sqd);
   q.s = sqrt(speed_sqd) + sqrt(T(kGamma) * q.p * q.inv);
+  return q;
+}
+
+// the same state from the node's stored 1/rho and speed + speed of sound
+// (a producer's complete8 of the same stored channels): no divide and no
+// square root, and the bits of complete8
+template <typename T>
+__device__ __forceinline__ State8<T> complete8(T rho, T mx, T my, T mz,
+                                               T E, T inv, T s) {
+  T speed_sqd;
+  State8<T> q = with_pressure(rho, mx, my, mz, E, inv, speed_sqd);
+  q.s = s;
   return q;
 }
 
@@ -121,6 +145,29 @@ __device__ __forceinline__ State8<compute_t<S>> complete8(
   return complete8<compute_t<S>>(
       to_compute(x[j]), to_compute(x[n + j]), to_compute(x[2 * n + j]),
       to_compute(x[3 * n + j]), to_compute(x[4 * n + j]));
+}
+
+// The stored primitives of a (5, n) state: a (2, n) compute-type operand,
+// row 0 each node's 1/rho and row 1 its speed + speed of sound, as
+// complete8 gives them from the stored channels. The kernel that writes a
+// state stores them (store_primitives); the next fused stage gathers them
+// in place of a divide and two square roots per CSR entry.
+template <typename S>
+__device__ __forceinline__ State8<compute_t<S>> complete8(
+    const S* __restrict__ x, int64_t n, int64_t j,
+    const compute_t<S>* __restrict__ prims) {
+  return complete8<compute_t<S>>(
+      to_compute(x[j]), to_compute(x[n + j]), to_compute(x[2 * n + j]),
+      to_compute(x[3 * n + j]), to_compute(x[4 * n + j]), prims[j],
+      prims[n + j]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store_primitives(const State8<T>& q,
+                                                 T* __restrict__ prims,
+                                                 int64_t n, int64_t i) {
+  prims[i] = q.inv;
+  prims[n + i] = q.s;
 }
 
 // flux value into the owner o of one half-edge to n with signed normal

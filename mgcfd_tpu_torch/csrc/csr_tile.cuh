@@ -71,6 +71,18 @@ __device__ __forceinline__ void stage_chunk(int* __restrict__ scol,
   }
 }
 
+// node j of the neighbour space, completed, or with PRIM from its stored
+// primitives
+template <bool PRIM, typename S, typename C = compute_t<S>>
+__device__ __forceinline__ State8<C> neighbour(const S* __restrict__ x,
+                                               int64_t n, int64_t j,
+                                               const C* __restrict__ prims) {
+  if constexpr (PRIM)
+    return complete8(x, n, j, prims);
+  else
+    return complete8(x, n, j);
+}
+
 // The flux sums of the tile of kTileRows rows from r0 of an owner-sorted
 // CSR of n_rows rows, each row's entries added from zero in CSR order
 // into its thread's acc (zero for a thread that owns no row). The block
@@ -87,12 +99,18 @@ __device__ __forceinline__ void stage_chunk(int* __restrict__ scol,
 // in flux mode) is never a tile row, so it is completed from x_nbr even
 // where the last tile is short. On return the window, smem's first 8 B
 // compute-type values, is written and visible to the whole block.
-template <typename S>
+// With PRIM (the fused stage, where the neighbour space is the owners'
+// own: x_own == x_nbr) every node's 1/rho and speed + speed of sound are
+// gathered from its stored primitives prims (2, n_nbr; csr_common.cuh)
+// instead of computed: the window's and each neighbour's, two more
+// scattered loads per entry in place of a divide and two square roots.
+template <typename S, bool PRIM = false>
 __device__ __forceinline__ void tile_flux_sums(
     const int* __restrict__ row_ptr, const int* __restrict__ col,
     const S* __restrict__ w, int64_t n_half, const S* __restrict__ x_own,
     int64_t n_rows, const S* __restrict__ x_nbr, int64_t n_nbr, int64_t r0,
-    bool vec, unsigned char* smem, compute_t<S> acc[5]) {
+    bool vec, unsigned char* smem, compute_t<S> acc[5],
+    const compute_t<S>* __restrict__ prims = nullptr) {
   using C = compute_t<S>;
   constexpr int B = kTileRows;
   constexpr int E = chunk_entries<C>();
@@ -109,7 +127,7 @@ __device__ __forceinline__ void tile_flux_sums(
   const int e0 = row_ptr[r0], e1 = row_ptr[r1];
   const int h0 = own ? row_ptr[i] : e1, h1 = own ? row_ptr[i + 1] : e1;
   stage_chunk(scol, sw, col, w, n_half, E, e0, e0 + E < e1 ? e0 + E : e1);
-  complete_window<S>(x_own, n_rows, r0, B, sq, B, 0, vec);
+  complete_window<S, PRIM>(x_own, n_rows, r0, B, sq, B, 0, vec, prims);
   for (int c = 0; c < 5; ++c) acc[c] = C(0);
   for (int c0 = e0; c0 < e1; c0 += E) {
     const int c1 = c0 + E < e1 ? c0 + E : e1;
@@ -124,7 +142,7 @@ __device__ __forceinline__ void tile_flux_sums(
       const int64_t pj = j - r0;
       const State8<C> qn =
           pj >= 0 && pj < rows ? get8(sq, B, static_cast<int>(pj))
-                               : complete8(x_nbr, n_nbr, j);
+                               : neighbour<PRIM>(x_nbr, n_nbr, j, prims);
       C v[5];
       const S* wx = sw + x + wshift<S>(c0);
       flux_math(get8(sq, B, srow[x]), qn, to_compute(wx[0]),

@@ -65,6 +65,33 @@
 //     cap on the host: no per-plan table to build, upload and keep in step
 //     with the CSR, and a row of any length runs; a box tile's ~750
 //     entries take one chunk at fp32 and bf16, two at fp64.
+//   - Stored primitives. A node's completion (csr_common.cuh complete8)
+//     is a divide (1/rho) and two square roots (|v| and the speed of
+//     sound) around about 14 multiplies and adds, and it was repeated at
+//     every entry that names the node from outside its tile: 5.9 times a
+//     stage at the M6 configurations' level 0 (0.35 % of their entries
+//     tile-local), about 11 on the tet's. Where the caller gives
+//     prims_in, (2, n) rows of each node's 1/rho and speed + speed of
+//     sound in the compute type, stored by the launch that wrote q (the
+//     step factor's first pass, or the stage before; the solver's two
+//     buffers a level alternate), the window and every neighbour load
+//     those two values and rebuild the pressure from 1/rho with
+//     multiplies and adds only. The stored values are complete8 of the
+//     same stored channels, so the outputs keep their bits. Where it
+//     gives prims_out, each row's thread stores its new state's, complete8
+//     of the value it stored (the epilogue of the first two stages). The
+//     operand is 8 B a node at fp32 and bf16, 16 at fp64, in each
+//     direction: two more scattered 4-byte loads per entry (2 x 4 x
+//     1,800,656 = 14.4 MB at level 0 of the box flagship, mostly from the
+//     L2) and 2.4 MB stored. Those loads cost more than the completion
+//     where a warp's neighbours scatter over many sectors, so the solver
+//     gives the operand only to levels whose loads touch few, by a limit
+//     for each dtype, or that are small (kernels/fused_stage.py
+//     gathers_primitives: on the H100 M6's RCM levels 0 and 1 ran a
+//     visit 5-8 % faster at fp32, its levels 2 and 3 2-8 % slower, the
+//     tet's levels of 4,896 and 648 nodes 3-10 % faster). Given neither, the kernel completes every node as
+//     before, and so do edge_csr.cu's flux tile and
+//     shift_fused_stage.cu's windows, which are never given one.
 //   - Then each row's thread adds the boundary/wall flux, updates the
 //     state and counts invalid values.
 // What holds it back (bench/stage_ab.py on the H100, level 0, warm L2):
@@ -91,7 +118,7 @@
 
 namespace mgcfd {
 
-template <typename S, bool RES>
+template <typename S, bool RES, bool GATHER, bool STORE>
 __global__ void __launch_bounds__(kThreads, FusedMinBlocks<S>::value)
     fused_stage_kernel(const int* __restrict__ row_ptr,
                        const int* __restrict__ col, const S* __restrict__ w,
@@ -99,7 +126,9 @@ __global__ void __launch_bounds__(kThreads, FusedMinBlocks<S>::value)
                        const S* __restrict__ old, const S* __restrict__ fac,
                        BoundaryRows<S> bnd, S* __restrict__ out,
                        S* __restrict__ res, long long* __restrict__ total,
-                       int64_t n, bool vec) {
+                       const compute_t<S>* __restrict__ prims_in,
+                       compute_t<S>* __restrict__ prims_out, int64_t n,
+                       bool vec) {
   using C = compute_t<S>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = threadIdx.x;
@@ -108,32 +137,52 @@ __global__ void __launch_bounds__(kThreads, FusedMinBlocks<S>::value)
   const bool own = t < kTileRows && i < n;
   const BoundaryWord word = own ? boundary_word(bnd, i) : BoundaryWord{};
   C acc[5];
-  tile_flux_sums<S>(row_ptr, col, w, n_half, q, n, q, n, r0, vec, smem, acc);
+  tile_flux_sums<S, GATHER>(row_ptr, col, w, n_half, q, n, q, n, r0, vec,
+                            smem, acc, prims_in);
   int bad = 0;
   if (own)
-    bad = update_node<S, RES>(get8(reinterpret_cast<C*>(smem), kTileRows, t),
-                              acc, bnd, word, old, fac,
-                              static_cast<const S*>(nullptr), out, res, n,
-                              i);
+    bad = update_node<S, RES, STORE>(
+        get8(reinterpret_cast<C*>(smem), kTileRows, t), acc, bnd, word, old,
+        fac, static_cast<const S*>(nullptr), out, res, n, i, prims_out);
   add_block_count(bad, total);
+}
+
+// the kernel for the operands given: RES where res is, GATHER where
+// prims_in is, STORE where prims_out is
+template <typename S, bool RES, bool GATHER>
+inline auto stage_kernel(const void* prims_out) {
+  return prims_out != nullptr ? fused_stage_kernel<S, RES, GATHER, true>
+                              : fused_stage_kernel<S, RES, GATHER, false>;
+}
+
+template <typename S, bool RES>
+inline auto stage_kernel(const void* prims_in, const void* prims_out) {
+  return prims_in != nullptr ? stage_kernel<S, RES, true>(prims_out)
+                             : stage_kernel<S, RES, false>(prims_out);
 }
 
 template <typename S>
 int launch_fused(const void* row_ptr, const void* col, const void* w,
                  int64_t n_half, const void* q, const void* old,
                  const void* fac, const BoundaryRows<S>& bnd, void* out,
-                 void* res, void* total, int64_t n, cudaStream_t stream) {
+                 void* res, void* total, const void* prims_in,
+                 void* prims_out, int64_t n, cudaStream_t stream) {
+  using C = compute_t<S>;
   constexpr size_t smem = tile_shared_bytes<S, kTileRows>();
   static_assert(smem <= 48 * 1024, "more shared memory than a launch gets");
   const int64_t blocks = (n + kTileRows - 1) / kTileRows;
-  auto* kernel = res != nullptr ? fused_stage_kernel<S, true>
-                                : fused_stage_kernel<S, false>;
+  auto* kernel = res != nullptr ? stage_kernel<S, true>(prims_in, prims_out)
+                                : stage_kernel<S, false>(prims_in, prims_out);
+  // the window's vector loads take the primitives' rows too
+  const bool vec = rows_take_vectors<S>(q, n) &&
+                   reinterpret_cast<uintptr_t>(prims_in) % 16 == 0;
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const int*>(row_ptr), static_cast<const int*>(col),
       static_cast<const S*>(w), n_half, static_cast<const S*>(q),
       static_cast<const S*>(old), static_cast<const S*>(fac), bnd,
       static_cast<S*>(out), static_cast<S*>(res),
-      static_cast<long long*>(total), n, rows_take_vectors<S>(q, n));
+      static_cast<long long*>(total), static_cast<const C*>(prims_in),
+      static_cast<C*>(prims_out), n, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -145,7 +194,9 @@ int launch_fused(const void* row_ptr, const void* col, const void* w,
 // q, old, out (5, n); fac (n); the boundary/wall operand (csr_common.cuh
 // BoundaryRows): mask and rank (ceil(n / 32)) uint32 and int32, vals (11,
 // stored); w (4, n_half); res (5, n) or null; total: one int64 to which
-// the kernel adds the count.
+// the kernel adds the count; prims_in, prims_out (2, n) of the compute
+// type (float32 at bfloat16), or null: q's stored primitives, gathered in
+// place of completing each node, and out's, stored (csr_common.cuh).
 extern "C" int mgcfd_fused_stage(int64_t dtype, const void* row_ptr,
                                  const void* col, const void* w,
                                  int64_t n_half, const void* q,
@@ -153,6 +204,7 @@ extern "C" int mgcfd_fused_stage(int64_t dtype, const void* row_ptr,
                                  const void* mask, const void* rank,
                                  const void* vals, int64_t stored,
                                  void* out, void* res, void* total,
+                                 const void* prims_in, void* prims_out,
                                  int64_t n, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return mgcfd::dispatch_dtype(dtype, [&](auto tag) {
@@ -162,6 +214,7 @@ extern "C" int mgcfd_fused_stage(int64_t dtype, const void* row_ptr,
                                      static_cast<const int*>(rank),
                                      static_cast<const S*>(vals), stored};
     return mgcfd::launch_fused<S>(row_ptr, col, w, n_half, q, old, fac, bnd,
-                                  out, res, total, n, s);
+                                  out, res, total, prims_in, prims_out, n,
+                                  s);
   });
 }

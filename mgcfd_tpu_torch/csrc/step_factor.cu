@@ -46,6 +46,12 @@
 //     into partials[blocks] and sets the counter back to 0, so the next
 //     launch, or a CUDA graph's replay, finds it at 0. No float atomic:
 //     the minimum is the same whatever the blocks' order.
+//   - Where the caller gives prims (the window path's level buffer),
+//     pass 1 also stores each node's primitives for the first RK stage
+//     to gather (csr_common.cuh store_primitives): complete8 of the
+//     stored q, the fused stage's own operations, apart from the
+//     eager-order values above, which keep their bits; 8 B a node more
+//     written at fp32.
 //   - The minimum propagates NaN as torch.min does (fminf drops it): a NaN
 //     in any node's dt makes every factor NaN.
 //   - Pass 2 (stage_factor_kernel): a thread a node, sf = min / V[i], and
@@ -185,11 +191,15 @@ __device__ __forceinline__ void store_stages(C sf, S* __restrict__ fac,
     fac[j * n + i] = to_storage<S>(Rn<C>::mul(sf, C(1) / C(kRK + 1 - j)));
 }
 
-template <typename S>
+// PRIM: the epilogue that also stores each node's primitives into prims
+// (2, n), complete8 of the stored q as the fused stage completes it,
+// apart from the eager-order values above (csr_common.cuh)
+template <typename S, bool PRIM>
 __global__ void __launch_bounds__(kThreads)
     step_min_kernel(const S* __restrict__ q, const S* __restrict__ cbrt_v,
                     compute_t<S>* __restrict__ partials,
-                    unsigned int* __restrict__ arrivals, int64_t n) {
+                    unsigned int* __restrict__ arrivals,
+                    compute_t<S>* __restrict__ prims, int64_t n) {
   using C = compute_t<S>;
   using Op = Eager<S>;
   __shared__ C shared[kThreads / 32];
@@ -199,9 +209,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int k = 0; k < kStepNodes; ++k) {
     const int64_t i = first + int64_t(k) * kThreads;
-    if (i < n)
+    if (i < n) {
       m = nan_min(m, Op::div(Op::mul(C(0.5), to_compute(cbrt_v[i])),
                              speed_plus_sos(q, n, i)));
+      if constexpr (PRIM) store_primitives(complete8(q, n, i), prims, n, i);
+    }
   }
   m = block_min(m, shared);
   if (threadIdx.x == 0) {
@@ -250,7 +262,8 @@ __global__ void __launch_bounds__(kThreads)
 template <typename S>
 int launch_step(bool legacy, const void* q, const void* volumes,
                 const void* cbrt_v, void* partials, int64_t partials_len,
-                void* arrivals, void* fac, int64_t n, cudaStream_t s) {
+                void* arrivals, void* prims, void* fac, int64_t n,
+                cudaStream_t s) {
   const auto node_blocks = static_cast<unsigned>((n + kThreads - 1) /
                                                  kThreads);
   if (legacy) {
@@ -264,9 +277,11 @@ int launch_step(bool legacy, const void* q, const void* volumes,
     return static_cast<int>(cudaErrorInvalidValue);
   using C = compute_t<S>;
   C* part = static_cast<C*>(partials);
-  step_min_kernel<S><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+  auto* pass1 = prims != nullptr ? step_min_kernel<S, true>
+                                 : step_min_kernel<S, false>;
+  pass1<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
       static_cast<const S*>(q), static_cast<const S*>(cbrt_v), part,
-      static_cast<unsigned int*>(arrivals), n);
+      static_cast<unsigned int*>(arrivals), static_cast<C*>(prims), n);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   stage_factor_kernel<S><<<node_blocks, kThreads, 0, s>>>(
@@ -284,16 +299,19 @@ int launch_step(bool legacy, const void* q, const void* volumes,
 // type) and arrivals (one int32, 0 before the first launch) are the
 // caller's scratch, which the kernels leave ready for the next launch.
 // cbrt_v, partials and arrivals are not read when legacy is nonzero.
+// prims: (2, n) of the compute type, where pass 1 stores q's primitives
+// (csr_common.cuh), or null; the legacy pass stores none.
 extern "C" int mgcfd_step_factor(int64_t dtype, int64_t legacy,
                                  const void* q, const void* volumes,
                                  const void* cbrt_v, void* partials,
                                  int64_t partials_len, void* arrivals,
-                                 void* fac, int64_t n, void* stream) {
+                                 void* prims, void* fac, int64_t n,
+                                 void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return mgcfd::dispatch_dtype(dtype, [&](auto tag) {
     using S = decltype(tag);
     if (n == 0) return 0;
     return mgcfd::launch_step<S>(legacy != 0, q, volumes, cbrt_v, partials,
-                                 partials_len, arrivals, fac, n, s);
+                                 partials_len, arrivals, prims, fac, n, s);
   });
 }

@@ -72,6 +72,10 @@ __device__ __forceinline__ void unpack(const double2& v, double o[2]) {
   o[0] = v.x;
   o[1] = v.y;
 }
+__device__ __forceinline__ void unpack(const float2& v, float o[2]) {
+  o[0] = v.x;
+  o[1] = v.y;
+}
 __device__ __forceinline__ void unpack(const __nv_bfloat162& v, float o[2]) {
   o[0] = __low2float(v);
   o[1] = __high2float(v);
@@ -139,15 +143,30 @@ struct CVec<double, 2> {
   }
 };
 
+// node j of q completed, or quiescent gas outside [0, n); with PRIM from
+// its stored primitives prims (csr_common.cuh)
+template <bool PRIM, typename S, typename C = compute_t<S>>
+__device__ __forceinline__ State8<C> node_state(const S* __restrict__ q,
+                                                int64_t n, int64_t j,
+                                                const C* __restrict__ prims) {
+  if constexpr (PRIM) {
+    if (j >= 0 && j < n) return complete8(q, n, j, prims);
+  }
+  return node_or_quiescent(q, n, j);
+}
+
 // complete the nodes [lo, lo + count) of the stored (5, n) state q into
 // window positions [p0, p0 + count) of s; the block's threads share the
 // work. With vec, lo, count, p0 and W are multiples of Vec<S>::width, and
-// a thread's V nodes go to the window as one vector store a row.
-template <typename S, typename C = compute_t<S>>
-__device__ __forceinline__ void complete_window(const S* __restrict__ q,
-                                                int64_t n, int64_t lo,
-                                                int count, C* __restrict__ s,
-                                                int W, int p0, bool vec) {
+// a thread's V nodes go to the window as one vector store a row. With
+// PRIM the nodes' 1/rho and speed + speed of sound are read from their
+// stored primitives prims (2, n), with vector loads too where vec holds
+// (prims on a 16-byte boundary), instead of computed.
+template <typename S, bool PRIM = false, typename C = compute_t<S>>
+__device__ __forceinline__ void complete_window(
+    const S* __restrict__ q, int64_t n, int64_t lo, int count,
+    C* __restrict__ s, int W, int p0, bool vec,
+    const C* __restrict__ prims = nullptr) {
   constexpr int V = Vec<S>::width;
   using VT = typename Vec<S>::type;
   using CV = CVec<C, V>;
@@ -160,10 +179,23 @@ __device__ __forceinline__ void complete_window(const S* __restrict__ q,
         C v[5][V];
         for (int c = 0; c < 5; ++c)
           unpack(*reinterpret_cast<const VT*>(q + c * n + j), v[c]);
-        for (int e = 0; e < V; ++e)
-          z[e] = complete8<C>(v[0][e], v[1][e], v[2][e], v[3][e], v[4][e]);
+        if constexpr (PRIM) {
+          C pv[2][V];
+          for (int r = 0; r < 2; ++r)
+            unpack(*reinterpret_cast<const typename CV::type*>(
+                       prims + r * n + j),
+                   pv[r]);
+          for (int e = 0; e < V; ++e)
+            z[e] = complete8<C>(v[0][e], v[1][e], v[2][e], v[3][e], v[4][e],
+                                pv[0][e], pv[1][e]);
+        } else {
+          for (int e = 0; e < V; ++e)
+            z[e] =
+                complete8<C>(v[0][e], v[1][e], v[2][e], v[3][e], v[4][e]);
+        }
       } else {
-        for (int e = 0; e < V; ++e) z[e] = node_or_quiescent(q, n, j + e);
+        for (int e = 0; e < V; ++e)
+          z[e] = node_state<PRIM>(q, n, j + e, prims);
       }
       C r[8][V];
       for (int e = 0; e < V; ++e) {
@@ -182,7 +214,7 @@ __device__ __forceinline__ void complete_window(const S* __restrict__ q,
     }
   } else {
     for (int e = threadIdx.x; e < count; e += kThreads)
-      put8(s, W, p0 + e, node_or_quiescent(q, n, lo + e));
+      put8(s, W, p0 + e, node_state<PRIM>(q, n, lo + e, prims));
   }
 }
 
@@ -214,16 +246,21 @@ __device__ __forceinline__ void async_wait_all() {
 // stored value: to_storage(to_compute(out) - to_compute(old)), the
 // rounding of the eager q - old. A template flag, not a test of res, so
 // that the other stages run the update as it was before the epilogue.
+// With PRIM (the first two RK stages' epilogue, where the caller gives a
+// buffer) it also stores the primitives of the stored state into prims
+// (2, n): complete8 of to_compute(out), the values the next stage would
+// complete at each entry that names node i.
 // The boundary/wall values come from the compact operand bnd and node
 // i's word of it, bw_word (csr_common.cuh boundary_word); old, fac, spill,
 // out and res are (5, n) or (n) rows read and written at column i.
-template <typename S, bool RES, typename C = compute_t<S>>
+template <typename S, bool RES, bool PRIM = false, typename C = compute_t<S>>
 __device__ __forceinline__ int update_node(
     const State8<C>& qi, const C acc[5], const BoundaryRows<S>& bnd,
     BoundaryWord bw_word, const S* __restrict__ old,
     const S* __restrict__ fac, const S* __restrict__ spill,
-    S* __restrict__ out, S* __restrict__ res, int64_t n, int64_t i) {
-  C k[11], bw[5];
+    S* __restrict__ out, S* __restrict__ res, int64_t n, int64_t i,
+    C* __restrict__ prims = nullptr) {
+  C k[11], bw[5], st[5];
   boundary_row(bnd, bw_word, i, k);
   bw_flux(qi, k, bw);
   const C f = to_compute(fac[i]);
@@ -233,11 +270,15 @@ __device__ __forceinline__ int update_node(
     if (spill != nullptr) a = a + to_compute(spill[c * n + i]);
     const C qn = to_compute(old[c * n + i]) + f * a;
     out[c * n + i] = to_storage<S>(qn);
+    st[c] = to_compute(to_storage<S>(qn));
     if constexpr (RES)
-      res[c * n + i] = to_storage<S>(sub_rn(
-          to_compute(to_storage<S>(qn)), to_compute(old[c * n + i])));
+      res[c * n + i] = to_storage<S>(
+          sub_rn(st[c], to_compute(old[c * n + i])));
     bad += invalid_value(c, qn);
   }
+  if constexpr (PRIM)
+    store_primitives(complete8<C>(st[0], st[1], st[2], st[3], st[4]), prims,
+                     n, i);
   return bad;
 }
 

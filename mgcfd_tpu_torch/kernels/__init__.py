@@ -17,7 +17,13 @@ the spill edges where its plan leaves any. The launches that carried
 each epilogue (EPILOGUE_NAMES: a fused stage's count into its caller's
 counter and its residual; the restriction's and the prolongation's
 updates) are the counters epilogue.<name>; a window or span cycle
-carries 18 / 6 / 3 / 3 (invalid / residual / restrict / prolong).
+carries 18 / 6 / 3 / 3 (invalid / residual / restrict / prolong). On the
+window path's levels with buffers (fused_stage.gathers_primitives) the
+first pass of the step factor and the first two RK stages also store the
+state's primitives for the next stage (epilogue.primitives, 3 a visit,
+2 under the legacy step factor, which stores none), and every fused
+stage gathers them (primitives.gathered, 3 a visit, 2 legacy): 18 and 18
+a cycle where every level has buffers; the span path neither.
 """
 from ..utils import spans
 from . import edge_csr, fused_stage as _fused, shift, step_factor as _step
@@ -30,6 +36,8 @@ EDGE_CSR = (edge_csr.flux, edge_csr.rw, edge_csr.restrict, edge_csr.prolong)
 WRAPPERS = (*EDGE_CSR, _fused.fused_stage, shift.flux, shift.rw,
             shift.fused_stage, _step.step_factor)
 EPILOGUE_NAMES = ("invalid", "residual", "restrict", "prolong")
+# the counters launch_counts(shapes=True) reports under their own names
+_KEPT = ("epilogue", "primitives")
 
 
 def reset_launch_counts() -> None:
@@ -48,25 +56,27 @@ def _named(prefix: str) -> dict:
 
 def launch_counts(shapes: bool = False) -> dict:
     """{wrapper name: launches}; with `shapes` also the edge_csr
-    wrappers' {<wrapper>.<shape>: launches} of the shapes they ran and
-    {epilogue.<name>: launches that carried it} of the epilogues that
-    ran."""
+    wrappers' {<wrapper>.<shape>: launches} of the shapes they ran,
+    {epilogue.<name>: launches that carried it} of the epilogues that ran
+    and {primitives.gathered: launches} where any gathered them."""
     if not shapes:
         return {w.name: COUNTS[f"launches.{w.name}"] for w in WRAPPERS}
-    return {**_named("launches"), **{f"epilogue.{k}": n for k, n
-                                     in _named("epilogue").items() if n}}
+    return {**_named("launches"),
+            **{f"{p}.{k}": n for p in _KEPT for k, n in _named(p).items()
+               if n}}
 
 
 def add_launch_counts(counts: dict) -> None:
-    """Add launch_counts()' {wrapper name, shape or epilogue counter:
-    launches} to the counts."""
-    COUNTS.update({k if k.startswith("epilogue.") else f"launches.{k}": n
-                   for k, n in counts.items()})
+    """Add launch_counts()' {wrapper name, shape, epilogue or gathered
+    counter: launches} to the counts."""
+    COUNTS.update({k if k.startswith(tuple(f"{p}." for p in _KEPT))
+                   else f"launches.{k}": n for k, n in counts.items()})
 
 
 reset_launch_counts()
 spans.source("launches", lambda: _named("launches"))
 spans.source("epilogue", lambda: _named("epilogue"))
+spans.source("primitives", lambda: _named("primitives"))
 
 
 __all__ = ["BoundaryRows", "boundary_rows", "DeviceCSR", "DeviceShift",

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "mgcfd_edge_csr": [_I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P,
                        _P, _P],
     "mgcfd_fused_stage": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
-                          _P, _P, _P, _I, _P],
+                          _P, _P, _P, _P, _P, _I, _P],
     "mgcfd_shift_flux": [_I, _I, _P, _I, _P, _P, _P, _I, _P],
     "mgcfd_shift_flux_at": [_I, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P],
     "mgcfd_shift_flux_shape": [_I, _I, _I, _I, _P],
@@ -57,7 +57,7 @@ _SIGNATURES = {
     "mgcfd_flux_shape": [_I, _I, _I, _P],
     "mgcfd_shift_fused_stage": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                                 _P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
-    "mgcfd_step_factor": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P],
+    "mgcfd_step_factor": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P],
 }
 
 # the dtype code every C entry point takes first: the storage type of the

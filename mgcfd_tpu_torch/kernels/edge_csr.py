@@ -186,15 +186,19 @@ def chunk_entries(dtype: torch.dtype) -> int:
     return 4096 // compute_dtype(dtype).itemsize
 
 
-def complete8(q):
+def complete8(q, prims=None):
     """(5, ...) conserved -> [rho, mx, my, mz, E, p, speed+sos, 1/rho],
-    the op order of flux_window._complete8 and csr_common.cuh."""
+    the op order of flux_window._complete8 and csr_common.cuh; with prims,
+    the state's stored primitives (2, ...) [1/rho, speed+sos]
+    (kernels/fused_stage.py primitives), those two taken from it and p
+    from its 1/rho, as the kernels gather them."""
     rho, mx, my, mz, E = q[0], q[1], q[2], q[3], q[4]
-    inv = 1.0 / rho
+    inv = 1.0 / rho if prims is None else prims[0]
     vx, vy, vz = mx * inv, my * inv, mz * inv
     speed_sqd = vx * vx + vy * vy + vz * vz
     p = (GAMMA - 1.0) * (E - 0.5 * rho * speed_sqd)
-    s = torch.sqrt(speed_sqd) + torch.sqrt(GAMMA * p * inv)
+    s = (torch.sqrt(speed_sqd) + torch.sqrt(GAMMA * p * inv)
+         if prims is None else prims[1])
     return [rho, mx, my, mz, E, p, s, inv]
 
 
@@ -247,8 +251,10 @@ def wsum_tail(csr: DeviceCSR, out, keep=None, correct=None):
 
 
 def row_sums(mode: str, csr: DeviceCSR, x: torch.Tensor,
-             own: torch.Tensor | None = None):
-    """edge_csr_plain before its final rounding: in compute_dtype."""
+             own: torch.Tensor | None = None, prims=None):
+    """edge_csr_plain before its final rounding: in compute_dtype. prims:
+    in flux mode without own, x's stored primitives, gathered as the
+    fused stage gathers them (complete8)."""
     c = compute_dtype(x.dtype)
     x = x.to(c)
     xn = x.index_select(1, csr.col)
@@ -258,8 +264,12 @@ def row_sums(mode: str, csr: DeviceCSR, x: torch.Tensor,
     else:
         xo = (x if own is None else own.to(c)).index_select(1, csr.owner)
         if mode == "flux":
-            vals = flux_math(complete8(xo), complete8(xn), w[0], w[1], w[2],
-                             w[3])
+            po = pn = None
+            if prims is not None:
+                po = prims.index_select(1, csr.owner)
+                pn = prims.index_select(1, csr.col)
+            vals = flux_math(complete8(xo, po), complete8(xn, pn), w[0],
+                             w[1], w[2], w[3])
         else:
             vals = xo + xn + w[0] + w[1] + w[2]
     out = torch.zeros((x.shape[0], csr.num_rows), dtype=x.dtype,

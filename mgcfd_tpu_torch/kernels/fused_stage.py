@@ -22,7 +22,16 @@ epilogue.residual (stage_epilogues).
 
 The kernel completes each tile's own nodes once, in shared memory, and any
 other neighbour again from device memory: tile_local_entries counts a
-CSR's entries of the first kind.
+CSR's entries of the first kind. Where the caller gives it prims_in, the
+state's stored primitives (primitives: 1/rho and speed + speed of sound,
+a (2, N) operand in the compute type), it gathers those two values of
+every node instead of a divide and two square roots; where it gives it
+prims_out, it stores the new state's, for the next stage. Both give the
+bits of the kernel without them. The solver gives them on the levels
+whose neighbours lie close enough for the two more loads an entry to
+cost less than the completion (gathers_primitives). A launch that stored
+them is counted under epilogue.primitives, one that gathered them under
+primitives.gathered.
 """
 from __future__ import annotations
 
@@ -57,15 +66,40 @@ def bw_flux(qo, nc):
 
 
 def fused_stage_plain(csr: DeviceCSR, nc, q, old, fac, count=None,
-                      residual: bool = False):
+                      residual: bool = False, prims_in=None, prims_out=None):
     """What the kernel computes, as stage_outputs gives it; nc the
-    BoundaryRows or the dense (11, N) operand."""
+    BoundaryRows or the dense (11, N) operand; q's primitives gathered
+    from prims_in where it is given, the new state's stored into
+    prims_out where it is."""
     c = compute_dtype(q.dtype)
-    acc = edge_csr.row_sums("flux", csr, q)
+    acc = edge_csr.row_sums("flux", csr, q, prims=prims_in)
     qc = q.to(c)
-    qnew = old.to(c) + fac.to(c) * (acc + bw_flux(complete8(qc),
+    qnew = old.to(c) + fac.to(c) * (acc + bw_flux(complete8(qc, prims_in),
                                                   as_dense(nc).to(c)))
-    return stage_outputs(qnew, old, count, residual)
+    out = stage_outputs(qnew, old, count, residual)
+    if prims_out is not None:
+        prims_out.copy_(primitives(out[0]))
+    return out
+
+
+def primitives(q):
+    """The stored primitives of a (5, N) state: (2, N) in the compute
+    type, row 0 each node's 1/rho and row 1 its speed + speed of sound,
+    as complete8 gives them from the stored values."""
+    p = complete8(q.to(compute_dtype(q.dtype)))
+    return torch.stack([p[7], p[6]])
+
+
+def check_primitives(prims, q, name: str, what: str) -> None:
+    """Raise unless prims is None or a contiguous (2, N) operand of q's
+    compute type beside the (5, N) state q."""
+    shape = (2, q.shape[1])
+    if prims is not None and (
+            tuple(prims.shape) != shape
+            or prims.dtype != compute_dtype(q.dtype)
+            or prims.device != q.device or not prims.is_contiguous()):
+        raise ValueError(f"{name}: {what} must be a contiguous {shape} "
+                         f"{compute_dtype(q.dtype)} tensor on {q.device}")
 
 
 def stage_outputs(qnew, old, count=None, residual: bool = False):
@@ -93,6 +127,75 @@ def tile_local_entries(plan) -> int:
     return int(np.count_nonzero(plan.col // rows == plan.owner // rows))
 
 
+# a level's fused stages gather the stored primitives where a load of
+# their flux phase touches at most GATHER_SECTORS_MAX[dtype] sectors on
+# average (gather_sectors), or where the level's state and primitives
+# take at most GATHER_FOOTPRINT_MAX bytes. Each entry then loads two more
+# rows; on a level whose neighbours scatter those loads cost more than
+# the divide and the two square roots they save, unless the level is
+# small (a few thousand nodes, which the caches hold). Chosen on the H100
+# from kernel_ab.py's visit rows (one visit, the step factor and three
+# stages) on the levels of M6's RCM hierarchy at 1x and 8x and of the RCM
+# tet, at each storage dtype. Each sector limit lies between the levels
+# that gained and those that lost, levels within the footprint aside:
+#   float32: 6.4, 10.5 and 12.8 sectors 4-8 % faster; 19.9, 22.8 and
+#     28.6 2-25 % slower;
+#   bfloat16 (a state half as wide, so the two loads weigh more): 6.4
+#     3.5 % faster at 8x and 1 % slower at 1x, 10.5 2 % slower, 12.8
+#     within 1 %, 19.9 and above 6-30 % slower;
+#   float64 (4 nodes a sector): 8.9 2-3 % faster, 12.7 1 % slower, 17.1
+#     within 0.3 %, 23.7 and above 7-20 % slower.
+# Every level within the footprint ran faster at every dtype: the tet's
+# levels 2 and 3 (4,896 and 648 nodes, 12-274 KB; 21.6 and 8.2 sectors
+# at fp32), 3-10 %; the smallest level that lost holds 81,180 nodes (1.5
+# MB at bf16).
+GATHER_SECTORS_MAX = {torch.float32: 16.0, torch.bfloat16: 9.0,
+                      torch.float64: 11.0}
+GATHER_FOOTPRINT_MAX = 512 * 1024
+
+
+def gathers_primitives(csr: DeviceCSR) -> bool:
+    """Whether a level's fused stages gather the stored primitives on its
+    owner CSR (GATHER_SECTORS_MAX, GATHER_FOOTPRINT_MAX)."""
+    return gather_footprint(csr) <= GATHER_FOOTPRINT_MAX or \
+        gather_sectors(csr) <= GATHER_SECTORS_MAX[csr.w.dtype]
+
+
+def gather_footprint(csr: DeviceCSR) -> int:
+    """Bytes of the (5, N) state and the (2, N) primitives that a level's
+    flux phase gathers from."""
+    return csr.num_cols * (5 * csr.w.element_size()
+                           + 2 * compute_dtype(csr.w.dtype).itemsize)
+
+
+def primitive_buffers(num_nodes: int, dtype, device) -> tuple:
+    """A level's two ping-pong (2, N) buffers of stored primitives, in
+    the compute type of the storage dtype: each stage gathers from one
+    what the launch before it stored and stores into the other."""
+    return tuple(torch.zeros((2, num_nodes), dtype=compute_dtype(dtype),
+                             device=device) for _ in range(2))
+
+
+def gather_sectors(csr: DeviceCSR) -> float:
+    """The mean number of distinct 32-byte sectors of a compute-type row
+    that one load of the flux phase touches: each warp evaluates 32
+    consecutive entries at a time, and the neighbours outside their
+    owner's tile (read from device memory) fall into this many sectors
+    of each row it loads, from 1 (neighbours side by side) to 32
+    (scattered)."""
+    warp = 32
+    nodes = 32 // compute_dtype(csr.w.dtype).itemsize
+    rows = edge_csr.FLUX_TILE_ROWS
+    col = csr.col.long()
+    sector = torch.where(col // rows == csr.owner // rows, -1, col // nodes)
+    sector = torch.nn.functional.pad(sector, (0, -len(sector) % warp),
+                                     value=-1).view(-1, warp)
+    s = sector.sort(dim=1).values
+    distinct = ((s[:, 1:] != s[:, :-1]) & (s[:, 1:] >= 0)).sum(1) \
+        + (s[:, 0] >= 0)
+    return float(distinct.double().mean()) if len(s) else 0.0
+
+
 def new_count(device):
     """A fused stage's counter where its caller keeps none: an int64
     zero of one element."""
@@ -109,11 +212,13 @@ def check_count(count, q, name: str) -> None:
                          f"of one element on {q.device}")
 
 
-def stage_epilogues(count, residual: bool) -> list:
+def stage_epilogues(count, residual: bool, prims_out=None) -> list:
     """The epilogues a fused stage's launch carried: the count into its
-    caller's counter, the residual."""
+    caller's counter, the residual, the new state's primitives."""
     return [name for name, on in (("invalid", count is not None),
-                                  ("residual", residual)) if on]
+                                  ("residual", residual),
+                                  ("primitives", prims_out is not None))
+            if on]
 
 
 def invalid_count(q):
@@ -131,13 +236,15 @@ class FusedStage:
         self.name = name
 
     def __call__(self, csr: DeviceCSR, bnd, q, old, fac, count=None,
-                 residual: bool = False):
+                 residual: bool = False, prims_in=None, prims_out=None):
         """q, old: (5, N); bnd: the BoundaryRows of the level's aggregated
         normals (kernels/boundary.py); fac: (N,) = step factor /
         (RK + 1 - j); count: the int64 counter of one element that the
-        kernel adds the invalid count into, or None for a new zero.
-        Returns (q_next, count), with residual also q_next - old (see
-        stage_outputs)."""
+        kernel adds the invalid count into, or None for a new zero;
+        prims_in: q's stored primitives (primitives), or None to complete
+        every node; prims_out: a (2, N) buffer, not prims_in, that takes
+        q_next's, or None. Returns (q_next, count), with residual also
+        q_next - old (see stage_outputs)."""
         if csr.num_cols != csr.num_rows:
             raise ValueError("fused_stage: owner and neighbour spaces "
                              "must coincide")
@@ -150,8 +257,15 @@ class FusedStage:
                                  f"{shape} {q.dtype} tensor on {q.device}")
         check_rows(bnd, q, n, self.name)
         check_count(count, q, self.name)
+        check_primitives(prims_in, q, self.name, "prims_in")
+        check_primitives(prims_out, q, self.name, "prims_out")
+        if prims_in is not None and prims_out is not None and \
+                prims_in.data_ptr() == prims_out.data_ptr():
+            raise ValueError(f"{self.name}: prims_out must not be the "
+                             "buffer prims_in, which the launch reads")
         if not edge_csr._on_card(q):
-            return fused_stage_plain(csr, bnd, q, old, fac, count, residual)
+            return fused_stage_plain(csr, bnd, q, old, fac, count, residual,
+                                     prims_in, prims_out)
         out = torch.empty_like(q)
         res = torch.empty_like(q) if residual else None
         total = count if count is not None else new_count(q.device)
@@ -160,10 +274,13 @@ class FusedStage:
             csr.col.data_ptr(), csr.w.data_ptr(), csr.num_entries,
             q.data_ptr(), old.data_ptr(), fac.data_ptr(),
             bnd.mask.data_ptr(), bnd.rank.data_ptr(), bnd.vals.data_ptr(),
-            bnd.stored, out.data_ptr(), pointer(res), total.data_ptr(), n,
+            bnd.stored, out.data_ptr(), pointer(res), total.data_ptr(),
+            pointer(prims_in), pointer(prims_out), n,
             torch.cuda.current_stream(q.device).cuda_stream)
         build.check(rc, self.name)
-        launched(self.name, epilogues=stage_epilogues(count, residual))
+        launched(self.name,
+                 epilogues=stage_epilogues(count, residual, prims_out),
+                 gathered=("primitives",) if prims_in is not None else ())
         return (out, total, res) if residual else (out, total)
 
 

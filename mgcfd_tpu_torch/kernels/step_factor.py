@@ -11,7 +11,10 @@ plain version's bit for bit at every dtype (the source says how, bfloat16
 included): the corrected variant in two launches (the nodes' least dt,
 then the factors), the legacy one in one. It takes the plain version for
 tensors on the CPU. On the card it needs the level's StepScratch,
-allocated once, outside any graph capture.
+allocated once, outside any graph capture. The corrected variant's first
+pass also stores the state's primitives (fused_stage.primitives) where
+the caller gives it a buffer (prims_out), for the first RK stage to
+gather: counted under epilogue.primitives.
 """
 from __future__ import annotations
 
@@ -19,9 +22,10 @@ import torch
 
 from ..core.constants import RK
 from ..ops import tops
-from . import build
+from . import build, edge_csr
 from .counts import launched
-from .edge_csr import compute_dtype
+from .edge_csr import compute_dtype, pointer
+from .fused_stage import check_primitives, primitives
 
 # nodes a block of the kernel's first pass (kStepBlockNodes in
 # csrc/step_factor.cu: 256 threads of 4 nodes)
@@ -66,9 +70,11 @@ class StepFactor:
         self.name = name
 
     def __call__(self, q, volumes, cbrt_volumes, legacy: bool,
-                 scratch: StepScratch | None = None):
+                 scratch: StepScratch | None = None, prims_out=None):
         """q: (5, N); volumes, cbrt_volumes: (N,). Returns fac (RK, N).
-        scratch: the level's, required on the card."""
+        scratch: the level's, required on the card. prims_out: a (2, N)
+        buffer that takes q's primitives, or None; the legacy variant
+        stores none."""
         n = q.shape[1]
         for name, t, shape in (("q", q, (5, n)), ("volumes", volumes, (n,)),
                                ("cbrt_volumes", cbrt_volumes, (n,))):
@@ -76,7 +82,13 @@ class StepFactor:
                     t.device != q.device or not t.is_contiguous():
                 raise ValueError(f"step_factor: {name} must be a contiguous "
                                  f"{shape} {q.dtype} tensor on {q.device}")
-        if not q.is_cuda:
+        check_primitives(prims_out, q, self.name, "prims_out")
+        if legacy and prims_out is not None:
+            raise ValueError("step_factor: the legacy variant stores no "
+                             "primitives")
+        if not edge_csr._on_card(q):
+            if prims_out is not None:
+                prims_out.copy_(primitives(q))
             return stage_factors_plain(q, volumes, cbrt_volumes, legacy)
         if scratch is None:
             raise ValueError("step_factor: a StepScratch is required on "
@@ -93,10 +105,13 @@ class StepFactor:
             build.dtype_code(q), int(legacy), q.data_ptr(),
             volumes.data_ptr(), cbrt_volumes.data_ptr(),
             scratch.partials.data_ptr(), scratch.partials.numel(),
-            scratch.arrivals.data_ptr(), fac.data_ptr(), n,
+            scratch.arrivals.data_ptr(), pointer(prims_out),
+            fac.data_ptr(), n,
             torch.cuda.current_stream(q.device).cuda_stream)
         build.check(rc, self.name)
         launched(self.name, n=1 if legacy else 2)
+        if prims_out is not None:
+            launched(epilogues=("primitives",))
         return fac
 
 

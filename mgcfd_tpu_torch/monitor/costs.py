@@ -15,6 +15,10 @@ from ..core.constants import RK
 
 # a node's completion [rho, m, E, p, speed + sos, 1/rho] (complete8)
 FLUX_OPS_PER_ROW = 17
+# of a completion, those that the stored primitives (1/rho and speed +
+# speed of sound) hold: the divide, the two square roots, the two
+# multiplies under the second and the add (csr_common.cuh complete8)
+PRIMITIVE_OPS = 6
 # flux_math, one half-edge's flux from two completed nodes
 FLUX_MATH_OPS = 63
 # per CSR entry: the neighbour's completion and flux_math
@@ -70,14 +74,24 @@ def boundary_bytes(bnd, sz: int) -> int:
     return 8 * int(bnd.mask.shape[0]) + sz * NC_ROWS * bnd.stored
 
 
-def fused_stage_cost(csr, bnd, sz: int):
+def fused_stage_cost(csr, bnd, sz: int, prims_in=None, prims_out=None):
     """fused_stage: q, old, fac and the boundary operand bnd in; the new
-    state out and the count added into an int64."""
+    state out and the count added into an int64. With prims_in, q's
+    stored primitives in, and every completion (the tile's rows and each
+    entry's neighbour) without the operations they hold; with prims_out,
+    the new state's completed and stored."""
     n = csr.num_rows
-    return (csr_bytes(csr, 4, sz) + sz * n * (5 + 5 + 1 + 5)
-            + boundary_bytes(bnd, sz) + 8,
-            FLUX_OPS_PER_ENTRY * csr.num_entries
-            + (FLUX_OPS_PER_ROW + FUSED_EXTRA_OPS_PER_ROW) * n)
+    nbytes = csr_bytes(csr, 4, sz) + sz * n * (5 + 5 + 1 + 5) \
+        + boundary_bytes(bnd, sz) + 8
+    ops = FLUX_OPS_PER_ENTRY * csr.num_entries \
+        + (FLUX_OPS_PER_ROW + FUSED_EXTRA_OPS_PER_ROW) * n
+    if prims_in is not None:
+        nbytes += prims_in.numel() * prims_in.element_size()
+        ops -= PRIMITIVE_OPS * (csr.num_entries + n)
+    if prims_out is not None:
+        nbytes += prims_out.numel() * prims_out.element_size()
+        ops += FLUX_OPS_PER_ROW * n
+    return nbytes, ops
 
 
 def shift_cost(mode: str, sh, sz: int):

@@ -70,8 +70,8 @@ from ..core.types import MultigridMesh
 from .. import kernels
 from ..kernels import (BoundaryRows, DeviceCSR, DeviceShift, boundary_rows,
                        edge_csr, shift)
-from ..kernels.fused_stage import fused_stage, invalid_count, \
-    tile_local_entries
+from ..kernels.fused_stage import fused_stage, gathers_primitives, \
+    invalid_count, primitive_buffers, tile_local_entries
 from ..kernels.step_factor import StepScratch
 from ..mesh.build import apply_ewt_conditioning
 from ..ops import (accumulate_flux, boundary_edge_flux, calc_rms,
@@ -123,6 +123,12 @@ class DeviceLevel:
     boundary: Optional[BoundaryRows] = None
     nc: Optional[torch.Tensor] = None
     step: Optional[StepScratch] = None     # the step factor kernel's (CUDA)
+    # the fused window stage's two ping-pong (2, N) buffers of the state's
+    # stored primitives, in the compute type (kernels/fused_stage.py
+    # primitive_buffers), where its CSR's neighbours lie close enough
+    # (gathers_primitives): each stage gathers what the step factor's
+    # first pass or the stage before it stored (_primitive_chain)
+    prims: Optional[tuple] = None
     # accumulate='pallas', 'shift': the span plan and its spill edges
     shift: Optional[DeviceShift] = None
     spill_csr: Optional[DeviceCSR] = None  # 'pallas'; None if no spill
@@ -223,7 +229,9 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
     counted over the levels as boundary.rows.stored of boundary.rows.all.
     The owner CSR of the window path's stages is counted over the levels
     as window.entries.local, the entries whose neighbour lies in the
-    owner's tile (fused_stage.tile_local_entries), of window.entries.all.
+    owner's tile (fused_stage.tile_local_entries), of window.entries.all;
+    its levels whose neighbours lie close enough (gathers_primitives) get
+    the fused stages' buffers of stored primitives.
     Every float64 host array is cast as mgcfd_tpu casts it (torch rounds
     float64 -> bfloat16 through float32, as jnp.asarray and ml_dtypes
     do)."""
@@ -275,6 +283,8 @@ def prepare_device_mesh(mesh: MultigridMesh, config: SolverConfig,
             d.csr = upload(lambda: DeviceCSR.from_plan(csr, device, dtype))
             spans.count("window.entries.local", tile_local_entries(csr))
             spans.count("window.entries.all", csr.num_entries)
+            if fused_stages(config) and gathers_primitives(d.csr):
+                d.prims = primitive_buffers(lv.num_nodes, dtype, device)
         if mode in ("pallas", "shift"):
             plan = plans[li]
             d.shift = upload(lambda: DeviceShift.from_plan(
@@ -483,12 +493,28 @@ def _visit(lvl: DeviceLevel, variables, ff_flux, config: SolverConfig,
 # one level, variable-major paths ('window', 'pallas', transposed 'shift')
 # ---------------------------------------------------------------------------
 
-def t_stage_factors(lvl: DeviceLevel, q, legacy_step: bool):
+def t_stage_factors(lvl: DeviceLevel, q, legacy_step: bool,
+                    prims_out=None):
     """The RK stages' factors (RK, N) of a (5, N) state: the step_factor
     kernel's on the card (the level's scratch), its plain version on the
-    CPU."""
+    CPU; q's primitives stored into prims_out where it is given."""
     return kernels.step_factor.step_factor(q, lvl.volumes, lvl.cbrt_volumes,
-                                           legacy_step, lvl.step)
+                                           legacy_step, lvl.step, prims_out)
+
+
+def _primitive_chain(lvl: DeviceLevel, legacy_step: bool) -> list:
+    """Where a visit stores its states' primitives: entry 0 the step
+    factor's first pass (none for the legacy variant, whose pass stores
+    none), entry j + 1 RK stage j; stage j gathers entry j. The level's
+    two buffers alternate, so that no stage stores into the buffer it
+    reads, and the last stage stores none. All None where the level has
+    no buffers (every path but the fused window stage)."""
+    if lvl.prims is None:
+        return [None] * (RK + 1)
+    chain = [lvl.prims[j % 2] for j in range(RK)] + [None]
+    if legacy_step:
+        chain[0] = None
+    return chain
 
 
 def _new_count(tag: int, device):
@@ -504,18 +530,21 @@ def _smooth(lvl: DeviceLevel, q, config: SolverConfig, legacy_step: bool,
     (mgcfd_tpu's _visit_transposed): one step_factor call gives every RK
     stage's factor (its global min is a cross-block reduction, so it stays
     outside the stages). With a fused stage, stage(lvl, q, old, fac,
-    count, residual) is ONE launch per RK stage that covers flux,
-    boundary/wall, time step and invalid count (its device time lands on
-    the flux range, as in mgcfd_tpu), and the last stage's launch also
-    stores the residual (its epilogue). With stage None each RK stage is
+    count, residual, prims_in, prims_out) is ONE launch per RK stage that
+    covers flux, boundary/wall, time step and invalid count (its device
+    time lands on the flux range, as in mgcfd_tpu), and the last stage's
+    launch also stores the residual (its epilogue); where the level has
+    primitive buffers each stage gathers what the step factor or the
+    stage before it stored (_primitive_chain). With stage None each RK stage is
     t_compute_fluxes, the time step and the invalid count, and the
     residual an eager q - old. The rw twin runs after each stage and its
     result is discarded. The invalid count is added into count, an int64
     counter (the cycle's; a new one where it is None): by the fused
     stages' kernels, else eagerly. Returns (q, residual, count)."""
     old = q
+    prims = _primitive_chain(lvl, legacy_step)
     with kscope("compute_step", tag):
-        fac = t_stage_factors(lvl, q, legacy_step)
+        fac = t_stage_factors(lvl, q, legacy_step, prims[0])
     if count is None:
         count = _new_count(tag, q.device)
     for j in range(RK):
@@ -523,7 +552,8 @@ def _smooth(lvl: DeviceLevel, q, config: SolverConfig, legacy_step: bool,
             _crippled_twin(lvl, q.T)
         if stage is not None:
             with kscope("flux", tag):
-                out = stage(lvl, q, old, fac[j], count, j == RK - 1)
+                out = stage(lvl, q, old, fac[j], count, j == RK - 1,
+                            prims[j], prims[j + 1])
             q = out[0]
         else:
             with kscope("flux", tag):
@@ -541,10 +571,12 @@ def _smooth(lvl: DeviceLevel, q, config: SolverConfig, legacy_step: bool,
         return q, q - old, count
 
 
-def _window_stage(lvl: DeviceLevel, q, old, fac, count, residual: bool):
+def _window_stage(lvl: DeviceLevel, q, old, fac, count, residual: bool,
+                  prims_in=None, prims_out=None):
     """One RK stage of the window path as one fused_stage launch."""
     return fused_stage(lvl.csr, lvl.boundary, q, old, fac, count,
-                       residual=residual)
+                       residual=residual, prims_in=prims_in,
+                       prims_out=prims_out)
 
 
 def _visit_window(lvl: DeviceLevel, q, config: SolverConfig,
@@ -617,10 +649,12 @@ def _span_rw(lvl: DeviceLevel, q, kernels: bool):
                                   torch.cat([sa, sb]), q.shape[1])
 
 
-def _span_stage(lvl: DeviceLevel, q, old, fac, count, residual: bool):
+def _span_stage(lvl: DeviceLevel, q, old, fac, count, residual: bool,
+                prims_in=None, prims_out=None):
     """One RK stage of the 'pallas' path as one shift.fused_stage launch,
     the spill edges' flux (from the edge_csr flux kernel) entering as its
-    operand."""
+    operand. Its levels have no primitive buffers: prims_in and prims_out
+    are None."""
     spill = (None if lvl.spill_csr is None
              else edge_csr.flux(lvl.spill_csr, q))
     return shift.fused_stage(lvl.shift, lvl.boundary, q, old, fac, spill,

@@ -47,6 +47,28 @@ def solve(rank, mesh, cfg: dict, cycles: int, out, batched: int = 0):
           partitioned_2d=s.part_orders is not None)
 
 
+def primitive_buffers(rank, mesh, cfg: dict, cycles: int, out):
+    """`cycles` cycles, then as many from the same start with the
+    replicated levels' primitive buffers dropped: each level's variables
+    and the RMS histories of both, and which levels had buffers."""
+    s = ShardedSolver(mesh, SolverConfig(**cfg), device="cpu")
+    has = [lvl.prims is not None for lvl in s.dmesh.levels]
+    start = {key: [t.clone() for t in v] for key, v in s.state.items()}
+    s.run(cycles)
+    got = {f"with{lev}": s.variables(lev)
+           for lev in range(mesh.num_levels)}
+    rms = list(s.rms_history)
+    s.state, s.rms_history = start, []
+    for lvl in s.dmesh.levels:
+        lvl.prims = None
+    s.run(cycles)
+    got.update({f"without{lev}": s.variables(lev)
+                for lev in range(mesh.num_levels)})
+    if s.rank == 0:
+        np.savez(out, has_buffers=np.asarray(has), rms_with=np.asarray(rms),
+                 rms_without=np.asarray(s.rms_history), **got)
+
+
 def resume(rank, mesh, cfg: dict, cycles: int, out):
     """A solver that resumes from cfg's checkpoint_dir, then `cycles`
     more; the start state too."""

@@ -584,7 +584,9 @@ def test_window_cycles_equal_the_eager_composition_on_the_card(card, m6,
 @pytest.mark.card
 def test_window_cycle_counts_and_plain_kernels(card, m6):
     """run_batched(10, 10) on the M6 window path: the launches a cycle
-    unchanged, the counters epilogue.* 6 / 3 / 3 / 18 a cycle; and in one
+    unchanged, the counters epilogue.* 6 / 3 / 3 / 18 a cycle, and
+    epilogue.primitives and primitives.gathered 3 a visit of each level
+    with buffers (18 where every level has them); and in one
     captured cycle, replayed under torch.profiler, at most 6 device
     kernels that are not the port's own (namespace mgcfd)."""
     from mgcfd_tpu_torch.bench.profile_cycle import profile_cycles
@@ -595,8 +597,16 @@ def test_window_cycle_counts_and_plain_kernels(card, m6):
     launched = kernels.launch_counts()
     assert {k: launched[k] for k in WINDOW_CYCLE} == {
         k: 10 * v for k, v in WINDOW_CYCLE.items()}
+    levels = s.dmesh.levels
+    visits = [1 if i in (0, len(levels) - 1) else 2
+              for i in range(len(levels))]
+    prims = 3 * sum(v for lvl, v in zip(levels, visits)
+                    if lvl.prims is not None)
+    assert prims > 0
     assert spans.counters("epilogue.") == {
-        k: 10 * v for k, v in EPILOGUE_CYCLE.items()}
+        **{k: 10 * v for k, v in EPILOGUE_CYCLE.items()},
+        "primitives": 10 * prims}
+    assert spans.counters("primitives.") == {"gathered": 10 * prims}
     s._graph = None
     s.state = {key: list(v) for key, v in saved.items()}
     stream = torch.cuda.current_stream(card)

@@ -149,3 +149,25 @@ def test_chip_smoke_refuses_without_a_card(tmp_path, alone):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_calls_each_entry_point_with_its_arguments():
+    """chip_smoke.py's dtype-refusal check calls every C entry point with
+    as many arguments as build's signature for it, and asks each one."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_arity", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    called = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def launch(*args):
+                assert len(args) == len(build._SIGNATURES[name]), name
+                called.append(name)
+                return 1
+            return launch
+
+    smoke.refuse_unknown_dtype(Lib())
+    assert sorted(called) == sorted(build._SIGNATURES)

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from mgcfd_tpu_torch import kernels
+from mgcfd_tpu_torch.core.constants import MeshVariant
 from mgcfd_tpu_torch.kernels import build, edge_csr
 from mgcfd_tpu_torch.kernels.edge_csr import (CHUNK, FULL_LEVEL,
                                               RW_LONG_ROW, DeviceCSR,
@@ -186,6 +187,59 @@ def test_a_replay_adds_the_shapes_as_the_wrappers():
     kernels.reset_launch_counts()
     assert kernels.launch_counts(shapes=True) == kernels.launch_counts()
     assert not any(kernels.launch_counts().values())
+
+
+@pytest.mark.parametrize("case", [
+    ("window", MeshVariant.M6_WING, 18, 18),
+    ("window", MeshVariant.FVCORR, 12, 12),
+    ("pallas", MeshVariant.M6_WING, 0, 0)],
+    ids=lambda c: f"{c[0]}-{c[1].name}")
+def test_a_cycle_stores_and_gathers_the_primitives(host_launches, case):
+    """One cycle of 6 visits on a 4-level box through the wrappers' card
+    path: on the window path the step factor's first pass and the first
+    two RK stages store the primitives (epilogue.primitives), every fused
+    stage gathers them (primitives.gathered); under the legacy step
+    factor (FVCORR) the step factor stores none and the first stage
+    gathers none; the span path neither."""
+    from mgcfd_tpu_torch.core.config import SolverConfig
+    from mgcfd_tpu_torch.kernels.step_factor import StepScratch
+    from mgcfd_tpu_torch.mesh import generate_multigrid_box
+    from mgcfd_tpu_torch.solver import MGCFDSolver
+    accumulate, variant, stored, gathered = case
+    mesh = generate_multigrid_box(16, 16, 16, 4, h=(0.1, 0.1, 0.1),
+                                  variant=variant)
+    s = MGCFDSolver(mesh, SolverConfig(dtype="float32",
+                                       accumulate=accumulate), device="cpu")
+    for lvl in s.dmesh.levels:
+        lvl.step = StepScratch(lvl.num_nodes, torch.float32, "cpu")
+    kernels.reset_launch_counts()
+    s.cycle()
+    launches = kernels.launch_counts(shapes=True)
+    legacy = variant.uses_legacy_step_factor
+    assert launches["step_factor"] == (6 if legacy else 12)
+    stages = "fused_stage" if accumulate == "window" else \
+        "shift.fused_stage"
+    assert launches[stages] == 18
+    assert spans.counters("epilogue.").get("primitives", 0) == stored
+    assert spans.counters("primitives.").get("gathered", 0) == gathered
+    assert launches.get("epilogue.primitives", 0) == stored
+    assert launches.get("primitives.gathered", 0) == gathered
+
+
+def test_a_replay_adds_the_primitives_counters():
+    """What CycleGraph keeps of a capture and adds on each replay: the
+    primitives' counters as the wrappers' launches."""
+    capture = {"fused_stage": 18, "step_factor": 12,
+               "epilogue.primitives": 18, "primitives.gathered": 18}
+    kernels.add_launch_counts(capture)
+    kernels.add_launch_counts(capture)
+    got = kernels.launch_counts(shapes=True)
+    assert {k: got[k] for k in capture} == {k: 2 * n for k, n in
+                                           capture.items()}
+    assert spans.counters("primitives.") == {"gathered": 36}
+    assert spans.counters("epilogue.")["primitives"] == 36
+    kernels.reset_launch_counts()
+    assert not spans.counters("primitives.").get("gathered", 0)
 
 
 # --- on the card --------------------------------------------------------------
