@@ -8,6 +8,8 @@ traffic mix) on the card:
 The harness is driven by data. A configuration is configs/<name>.json, a
 mix is mixes/<name>.json, and each per-layer metric is a reader
 metrics/<name>.py; run.py finds each by the name BENCHMARK.json gives.
+Where a configuration has the port renumber its mesh on load, order.py
+maps the port's node order to the files' by the node coordinates.
 
 Nothing here imports jax or the JAX package. inputs/ (the meshes),
 reference/ (the plain fp64 V-cycle), counts.py (bytes and operations) and

@@ -3,8 +3,10 @@ on the card, at a cell's own size, in one process, the numbers check.py
 compares for sound runs of the port on many seeds (the lower readings),
 for the control (the port under the configuration's "control" settings:
 its bfloat16 path, the precision below float32) and for each planted
-fault (faults.py), on a few seeds each. The benchmark's own runs never
-run this.
+fault (faults.py), on a few seeds each; where the configuration has the
+port renumber its mesh (order.py), also for its snapshot compared in the
+port's own order ("unmapped"), which must fail too. The benchmark's own
+runs never run this.
 
     python3 -m cfdbench.control --workload m6rcm.graph [--seeds 12]
         [--control-seeds 3] [--fault-seeds 3] [--first-seed 1000]
@@ -28,9 +30,10 @@ from cfdbench.run import cell_spec, cycles_per_call, make_call, \
     solver_config
 
 
-def readings_for(spec, kind, seeds, card, mesh, ref, sizes):
+def readings_for(spec, kind, seeds, card, mesh, order, ref, sizes):
     """Readings of `seeds` through one solver built for `kind` ("sound",
-    "control" or a fault)."""
+    "control", "unmapped" or a fault), on the mesh in the program's
+    order."""
     from mgcfd_tpu_torch.solver import MGCFDSolver
     from cfdbench.state import initial_state
 
@@ -43,11 +46,13 @@ def readings_for(spec, kind, seeds, card, mesh, ref, sizes):
         call = make_call(solver, spec["mix"])
         for seed in seeds:
             s0 = initial_state(sizes, seed, config["state"])
-            solver.load_state(s0)
+            solver.load_state(order.to_port(s0))
             solver.rms_history = []
             try:
                 call()
                 prog = snapshot(solver)
+                if kind != "unmapped":
+                    prog = order.to_file(prog)
             except FloatingPointError as e:
                 print(f"{kind} seed {seed}: {e}", file=sys.stderr)
                 out.append({"kind": kind, "seed": seed, "readings": None,
@@ -76,11 +81,13 @@ def main(argv=None) -> int:
     spec = cell_spec(args.workload)
     card = require_card(spec["cell"]["chips"])
 
+    from cfdbench.order import renumbered
     from cfdbench.reference import ReferenceSolver
 
     config = spec["config"]
     input_dat = mesh_files(config)
-    mesh = port_mesh(config, input_dat)
+    mesh, order, _ = renumbered(config, port_mesh(config, input_dat),
+                                input_dat)
     sizes = [lv.num_nodes for lv in mesh.levels]
     ref = ReferenceSolver(reference_mesh(config, input_dat), card.device)
     s = args.first_seed
@@ -88,13 +95,13 @@ def main(argv=None) -> int:
     s += args.seeds
     plan.append(("control", range(s, s + args.control_seeds)))
     s += args.control_seeds
-    for f in FAULTS:
+    for f in FAULTS + (("unmapped",) if order.perms else ()):
         plan.append((f, range(s, s + args.fault_seeds)))
         s += args.fault_seeds
     rows = []
     for kind, seeds in plan:
-        rows += readings_for(spec, kind, list(seeds), card, mesh, ref,
-                             sizes)
+        rows += readings_for(spec, kind, list(seeds), card, mesh, order,
+                             ref, sizes)
     summary = {}
     for name in check.NAMES:
         vals = {}

@@ -214,3 +214,15 @@ def read_hierarchy(input_dat: str) -> Hierarchy:
                      for i, lv in enumerate(levels) for k in _FIELDS})
     os.replace(tmp, npz)
     return Hierarchy(levels=levels, variant=variant, problem_size=size)
+
+
+def read_coords(input_dat: str) -> list:
+    """Each level's node coordinates as read_hierarchy reads them, from
+    its npz alone (not the rest of the levels) where a read has left one
+    there."""
+    npz = os.path.join(os.path.dirname(os.path.abspath(input_dat)), _NPZ)
+    if not os.path.exists(npz):
+        return [lv.coords for lv in read_hierarchy(input_dat).levels]
+    num_levels = len(read_input_dat(input_dat)[2])
+    with np.load(npz, allow_pickle=False) as z:
+        return [z[f"{i}.coords"] for i in range(num_levels)]

@@ -1,10 +1,10 @@
 """A configuration's mesh as the reference's files, made once per checkout.
 
 ensure(mesh_spec, directory) generates the hierarchy the spec names,
-renumbers it when asked, and writes it into `directory` (a fixed path
-inside the checkout), with the spec beside it in mesh.json. A later call
-with the same spec finds the files and writes nothing: every run of a
-cell after the first reads the same bytes.
+renumbers or shuffles it when asked, and writes it into `directory` (a
+fixed path inside the checkout), with the spec beside it in mesh.json. A
+later call with the same spec finds the files and writes nothing: every
+run of a cell after the first reads the same bytes.
 
 Two generators, each with its own keys:
   box  structured box levels of the (nx, ny, nz) nodes each level lists
@@ -22,6 +22,7 @@ import shutil
 from .box import generate_box_hierarchy
 from .datfiles import write_hierarchy
 from .rcm import renumber_hierarchy
+from .shuffle import shuffle_hierarchy
 from .tet import generate_tet_hierarchy
 
 STAMP = "mesh.json"
@@ -34,8 +35,9 @@ KEYS = {
             "variant", "order"},
 }
 # structured: the generator's own order ((i, j, k) for the box, shuffled
-# by the seed for the tet, as an imported mesh arrives); rcm: renumbered
-ORDERS = ("structured", "rcm")
+# by the seed for the tet, as an imported mesh arrives); rcm: renumbered;
+# shuffled: every level's ids permuted from the seed (inputs/shuffle.py)
+ORDERS = ("structured", "rcm", "shuffled")
 
 
 def check_spec(spec: dict) -> None:
@@ -56,8 +58,9 @@ def check_spec(spec: dict) -> None:
 
 def generate(spec: dict):
     """The hierarchy of a configuration's "mesh" entry: the generator's
-    levels at the sizes it lists, in the generator's order or
-    RCM-renumbered as an unstructured mesh is before it is written."""
+    levels at the sizes it lists, in the generator's order,
+    RCM-renumbered as an unstructured mesh is before it is written, or
+    shuffled from the spec's seed as an imported mesh arrives."""
     check_spec(spec)
     if spec["generator"] == "box":
         mesh = generate_box_hierarchy(
@@ -68,7 +71,11 @@ def generate(spec: dict):
             spec["levels"], h=tuple(spec["h"]), jitter=spec["jitter"],
             wall_frac=spec["wall_frac"], seed=spec["seed"],
             variant=spec["variant"])
-    return renumber_hierarchy(mesh) if spec["order"] == "rcm" else mesh
+    if spec["order"] == "rcm":
+        return renumber_hierarchy(mesh)
+    if spec["order"] == "shuffled":
+        return shuffle_hierarchy(mesh, spec["seed"])
+    return mesh
 
 
 def ensure(spec: dict, directory: str) -> str:

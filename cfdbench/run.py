@@ -4,7 +4,8 @@
 
 It makes the cell's mesh files once per checkout (cfdbench/.cache/), then
 loads them through the port as its CLI does (the parse, then -m's
-duplication), builds MGCFDSolver from the configuration, hands it the
+duplication, then --renumber's ordering where the configuration asks for
+it: order.py), builds MGCFDSolver from the configuration, hands it the
 initial state drawn from --seed, and runs the mix's entry: the first call
 from that state is the one the reference checks, and it and the mix's
 warm-up calls (CUDA graph capture, first replay) are set-up. With
@@ -45,8 +46,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "mgcfd_tpu")
 # they are (the CLI's own fields, such as mesh_duplicate_count, are not)
 SOLVER_KEYS = {"dtype", "accumulate", "fuse_stage", "fuse_window_stage",
                "mg_gather", "check_invalid_every"}
-# the load step of the CLI (cli/main.py) a configuration sets
+# the load step of the CLI (cli/main.py) a configuration sets: -m always,
+# --renumber where it says so
 LOAD_KEYS = {"duplicate"}
+LOAD_OPTIONAL = {"renumber"}
 # the solver's entries a mix may drive, and what it states besides
 ENTRIES = ("run", "run_batched")
 MIX_KEYS = {"entry", "args", "warmup_calls", "trace_calls",
@@ -135,9 +138,16 @@ def check_config(config: dict, mix: dict) -> None:
     if set(config["control"]) - SOLVER_KEYS:
         bad.append(f"control keys {sorted(config['control'])} (a control "
                    f"sets solver keys)")
-    if set(config["load"]) != LOAD_KEYS:
-        bad.append(f"load keys {sorted(config['load'])} (it takes "
-                   f"{sorted(LOAD_KEYS)})")
+    load = config["load"]
+    if not LOAD_KEYS <= set(load) <= LOAD_KEYS | LOAD_OPTIONAL:
+        bad.append(f"load keys {sorted(load)} (it takes {sorted(LOAD_KEYS)}"
+                   f" and may take {sorted(LOAD_OPTIONAL)})")
+    elif not isinstance(load.get("renumber", False), bool):
+        bad.append(f"load renumber {load['renumber']!r} (true or false)")
+    elif load.get("renumber") and load["duplicate"] != 1:
+        bad.append(f"load renumber with duplicate {load['duplicate']} (the "
+                   f"copies repeat coordinates, which map the port's order "
+                   f"to the files')")
     if set(config["limits"]) != set(check.NAMES):
         bad.append(f"limits {sorted(config['limits'])} (check.py compares "
                    f"{list(check.NAMES)})")
@@ -254,6 +264,7 @@ def measure(spec: dict, args, card: Card, record: dict) -> dict:
     """Set-up, the window or the traced calls, and the checked call's
     outputs; fills `record` and returns the outputs."""
     from mgcfd_tpu_torch.solver import MGCFDSolver
+    from cfdbench.order import renumbered
     from cfdbench.state import initial_state
 
     config, mix = spec["config"], spec["mix"]
@@ -262,20 +273,21 @@ def measure(spec: dict, args, card: Card, record: dict) -> dict:
     t1 = time.perf_counter()
     mesh = port_mesh(config, input_dat)
     t2 = time.perf_counter()
+    mesh, order, order_spans = renumbered(config, mesh, input_dat)
     record["nodes"] = sizes = [lv.num_nodes for lv in mesh.levels]
     s0 = initial_state(sizes, args.seed, config["state"])
     t3 = time.perf_counter()
     solver = MGCFDSolver(mesh, solver_config(config), device=card.device)
-    solver.load_state(s0)
+    solver.load_state(order.to_port(s0))
     call = make_call(solver, mix)
     call()
-    checked = snapshot(solver)
+    checked = order.to_file(snapshot(solver))
     for _ in range(mix["warmup_calls"]):
         call()
     card.sync()
     t4 = time.perf_counter()
     record["spans"] = {"inputs_s": t1 - t0, "mesh_load_s": t2 - t1,
-                       "prep_s": t4 - t3}
+                       "prep_s": t4 - t3} | order_spans
     record["e2e"] = {"setup_s": process_age_s()}
     record["accumulate"] = solver.config.accumulate
     k = cycles_per_call(mix)

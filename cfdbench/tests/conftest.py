@@ -1,6 +1,8 @@
 """Tiny configurations for the CPU tests: the box and RCM hierarchies at
-a few hundred nodes, with the limits of the full-size configurations, and
-a tetrahedral one (no configuration file has the tet generator yet)."""
+a few hundred nodes, with the limits of the full-size configurations, a
+tetrahedral one over the generator of configs/tetrcm.json; and
+tiny_config("rcm.shuffled"), the box stored shuffled and renumbered by
+the port on load."""
 import copy
 import json
 import os

@@ -133,7 +133,7 @@ def test_ensure_writes_once(tmp_path):
     assert_same(read_hierarchy(path), generate(spec))
 
 
-@pytest.mark.parametrize("change", [{"order": "shuffled"},
+@pytest.mark.parametrize("change", [{"order": "hilbert"},
                                     {"generator": "tet"},
                                     {"renumber": "rcm"}])
 def test_a_mesh_entry_not_read_is_refused(change):
@@ -253,7 +253,7 @@ MISSING = object()
     ({"volume_jitter": 0.2}, "volume_jitter"),
     ({"generator": "box"}, "volume_jitter"),
     ({"generator": "hex"}, "hex"),
-    ({"order": "shuffled"}, "shuffled"),
+    ({"order": "hilbert"}, "hilbert"),
     *(({key: MISSING}, key) for key in sorted(tet_spec()))])
 def test_a_tet_mesh_entry_not_read_is_refused(change, named):
     spec = {k: v for k, v in (tet_spec() | change).items()
