@@ -103,7 +103,7 @@ def main(argv=None) -> int:
         rows += readings_for(spec, kind, list(seeds), card, mesh, order,
                              ref, sizes)
     summary = {}
-    for name in check.NAMES:
+    for name in check.NAMES + check.OPTIONAL:
         vals = {}
         for row in rows:
             v = row["readings"][name] if row["readings"] else float("inf")

@@ -6,12 +6,15 @@ fixed path inside the checkout), with the spec beside it in mesh.json. A
 later call with the same spec finds the files and writes nothing: every
 run of a cell after the first reads the same bytes.
 
-Two generators, each with its own keys:
-  box  structured box levels of the (nx, ny, nz) nodes each level lists
-       (inputs/box.py), degree 6;
-  tet  unstructured tetrahedral median-dual levels over jittered grids of
-       the (nx, ny, nz) points each level lists (inputs/tet.py), about 7
-       internal edges a node.
+Three generators, each with its own keys:
+  box   structured box levels of the (nx, ny, nz) nodes each level lists
+        (inputs/box.py), degree 6;
+  tet   unstructured tetrahedral median-dual levels over jittered grids of
+        the (nx, ny, nz) points each level lists (inputs/tet.py), about 7
+        internal edges a node;
+  cell  one cell-centred tetrahedral level, Rodinia cfd's kind of mesh:
+        each tetrahedron of a jittered grid of (nx, ny, nz) points cut
+        into Kuhn tetrahedra is a node with its 4 faces (inputs/cell.py).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import os
 import shutil
 
 from .box import generate_box_hierarchy
+from .cell import generate_cell_hierarchy
 from .datfiles import write_hierarchy
 from .rcm import renumber_hierarchy
 from .shuffle import shuffle_hierarchy
@@ -33,6 +37,8 @@ KEYS = {
             "order"},
     "tet": {"generator", "levels", "h", "jitter", "wall_frac", "seed",
             "variant", "order"},
+    "cell": {"generator", "levels", "h", "jitter", "seed", "variant",
+             "order"},
 }
 # structured: the generator's own order ((i, j, k) for the box, shuffled
 # by the seed for the tet, as an imported mesh arrives); rcm: renumbered;
@@ -42,7 +48,8 @@ ORDERS = ("structured", "rcm", "shuffled")
 
 def check_spec(spec: dict) -> None:
     """ValueError unless the entry names a known generator and order with
-    exactly the keys that generate() reads for that generator."""
+    exactly the keys that generate() reads for that generator, and lists
+    one level where the generator makes one."""
     gen = spec.get("generator")
     if not isinstance(gen, str) or gen not in KEYS:
         raise ValueError(f"unknown generator {gen!r} (the generators are "
@@ -54,6 +61,9 @@ def check_spec(spec: dict) -> None:
                          f"{sorted(keys)})")
     if spec["order"] not in ORDERS:
         raise ValueError(f"unknown order {spec['order']!r} ({ORDERS})")
+    if gen == "cell" and len(spec["levels"]) != 1:
+        raise ValueError(f"the cell generator makes one level, not "
+                         f"{len(spec['levels'])}")
 
 
 def generate(spec: dict):
@@ -66,6 +76,10 @@ def generate(spec: dict):
         mesh = generate_box_hierarchy(
             spec["levels"], h=tuple(spec["h"]), variant=spec["variant"],
             volume_jitter=spec["volume_jitter"], seed=spec["seed"])
+    elif spec["generator"] == "cell":
+        mesh = generate_cell_hierarchy(
+            spec["levels"][0], h=tuple(spec["h"]), jitter=spec["jitter"],
+            seed=spec["seed"], variant=spec["variant"])
     else:
         mesh = generate_tet_hierarchy(
             spec["levels"], h=tuple(spec["h"]), jitter=spec["jitter"],

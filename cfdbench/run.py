@@ -148,9 +148,11 @@ def check_config(config: dict, mix: dict) -> None:
         bad.append(f"load renumber with duplicate {load['duplicate']} (the "
                    f"copies repeat coordinates, which map the port's order "
                    f"to the files')")
-    if set(config["limits"]) != set(check.NAMES):
+    if not set(check.NAMES) <= set(config["limits"]) \
+            <= set(check.NAMES + check.OPTIONAL):
         bad.append(f"limits {sorted(config['limits'])} (check.py compares "
-                   f"{list(check.NAMES)})")
+                   f"{list(check.NAMES)} and may compare "
+                   f"{list(check.OPTIONAL)})")
     if set(mix) != MIX_KEYS or mix["entry"] not in ENTRIES:
         bad.append(f"mix keys {sorted(set(mix) ^ MIX_KEYS)} or entry "
                    f"{mix.get('entry')!r} (entries {ENTRIES})")

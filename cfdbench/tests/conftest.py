@@ -2,7 +2,8 @@
 a few hundred nodes, with the limits of the full-size configurations, a
 tetrahedral one over the generator of configs/tetrcm.json; and
 tiny_config("rcm.shuffled"), the box stored shuffled and renumbered by
-the port on load."""
+the port on load; and tiny_config("fvcorr"), configs/fvcorr193k.json's one
+cell-centred level at a few hundred cells."""
 import copy
 import json
 import os
@@ -14,14 +15,19 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = os.path.dirname(HERE)
 TINY_LEVELS = [[10, 9, 11], [8, 7, 9], [6, 6, 7]]
 TINY_TET_LEVELS = [[10, 9, 11], [7, 6, 8], [5, 5, 6]]
+# the cell generator's one level: 6 x 5 x 6 x 5 = 900 tetrahedra
+TINY_CELL_LEVELS = [[6, 7, 6]]
 
 
 def tiny_config(kind: str) -> dict:
-    with open(os.path.join(PKG, "configs", f"m6{kind}.json")) as f:
+    cell = kind == "fvcorr"
+    name = "fvcorr193k" if cell else f"m6{kind}"
+    with open(os.path.join(PKG, "configs", f"{name}.json")) as f:
         cfg = copy.deepcopy(json.load(f))
     cfg["name"] = f"tiny{kind}"
-    cfg["mesh"]["levels"] = TINY_LEVELS
-    cfg["nodes"] = [int(np.prod(d)) for d in TINY_LEVELS]
+    cfg["mesh"]["levels"] = TINY_CELL_LEVELS if cell else TINY_LEVELS
+    cfg["nodes"] = [6 * int(np.prod(np.subtract(d, 1))) if cell
+                    else int(np.prod(d)) for d in cfg["mesh"]["levels"]]
     return cfg
 
 
